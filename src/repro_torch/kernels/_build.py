@@ -1,0 +1,86 @@
+"""Build and load the CUDA kernels: ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``.
+
+The library is built at first use into ``build/repro_torch_kernels/``
+at the root of the checkout (listed in ``.gitignore``), under a name
+keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused.  Nothing is built at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["build", "load"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = (_CSRC / "fused_search.cu",)
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # name: (argtypes, restype)
+    "fused_search_smem_bytes": ((_I, _I, _I, _I), ctypes.c_size_t),
+    "fused_search_error_string": ((_I,), ctypes.c_char_p),
+    "fused_window_search_launch": ((_P,) * 12 + (_I,) * 12 + (_P,), _I),
+    "fused_cand_search_launch": ((_P,) * 11 + (_I,) * 9 + (_P,), _I),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {path})")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"fused_search_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib

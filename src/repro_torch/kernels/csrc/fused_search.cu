@@ -1,0 +1,302 @@
+// Fused one-pass DB-LSH search kernels for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of the reference's serving path:
+//   * fused_window_kernel (repro/kernels/window_verify.py:328, wrapper
+//     repro/kernels/ops.py:281) -> fused_window_search_kernel below;
+//   * fused_cand_kernel (repro/kernels/window_verify.py:374, wrapper
+//     repro/kernels/ops.py:370) -> fused_cand_search_kernel below.
+//
+// What both compute (the oracle is repro/kernels/ref.py::fused_search_ref):
+// for each query and each of its candidate slots, the window halfwidth
+// hw = max_k |p_k - g_k|, the squared distance d2 (norm form
+// max(||x||^2 - 2<q,x> + ||q||^2, 0) or diff form sum((x - q)^2)) and the
+// schedule bin = #{j : hw > halves[j]}; then, per (query, bin j), the ks
+// lexicographically smallest DISTINCT (d2, id) pairs with finite d2
+// (unfilled: +inf / n) and cnt[q, j] = number of slots in bin j.
+//
+// Bound on this card: the work is a gather of Q*S*B rows of K + d + 2
+// words (31 MB at the main path, Q = 64, S = 25, B = 64, K = 10, d = 64:
+// ~9 us at 3.35 TB/s), followed by a data-dependent selection.  At that
+// size the kernel is bound by launch latency and by the selection, not
+// by bandwidth.
+//
+// Design (a simple, deterministic first version):
+//   * one thread block per query, looping over the query's S*B slots —
+//     the TPU grid's sequential revisits of one output block become a
+//     loop inside the block, and no state crosses blocks;
+//   * phase 1: each thread takes slots in a strided loop and computes
+//     hw, bin and (for admitted slots) d2 in registers; the triples are
+//     staged in shared memory;
+//   * phase 2: warp w owns bins w, w + nwarps, ...; per bin it counts the
+//     bin's slots, then runs ks rounds that each pick the smallest pair
+//     strictly after the previous pick (a warp-wide lexicographic argmin
+//     over shared memory).  "Strictly after" dedups identical pairs, and
+//     ties on d2 resolve to the smallest id;
+//   * no atomics: outputs are deterministic;
+//   * a slot's d2 comes from one sequential fmaf chain over d that depends
+//     only on (x, q), never on the slot's position, so the copies of one
+//     point held by several tables give bit-identical (d2, id) pairs —
+//     the dedup relies on that;
+//   * block bases use 64-bit element offsets (the main path addresses
+//     3.2e8 floats of vec_blocks);
+//   * any d (no vector loads that would need d % 4 == 0).
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct Stage {
+  float* halves;  // (steps,)
+  float* g;       // (L*K,) this query's projections
+  float* q;       // (d,)
+  float* d2;      // (C,) per-slot distances
+  int* id;        // (C,) per-slot ids
+  int* bin;       // (C,) per-slot bins (steps = never admitted)
+};
+
+__host__ __device__ inline size_t stage_bytes(int steps, int LK, int d, int C) {
+  return sizeof(float) * (size_t)(steps + LK + d) +
+         (size_t)C * (sizeof(float) + 2 * sizeof(int));
+}
+
+__device__ inline Stage carve(char* base, int steps, int LK, int d, int C) {
+  Stage s;
+  float* f = reinterpret_cast<float*>(base);
+  s.halves = f;
+  s.g = s.halves + steps;
+  s.q = s.g + LK;
+  s.d2 = s.q + d;
+  s.id = reinterpret_cast<int*>(s.d2 + C);
+  s.bin = s.id + C;
+  return s;
+}
+
+__device__ inline void stage_query(const Stage& s, const float* __restrict__ halves,
+                                   const float* __restrict__ g,
+                                   const float* __restrict__ q, int qi, int steps,
+                                   int LK, int d) {
+  for (int i = threadIdx.x; i < steps; i += blockDim.x) s.halves[i] = halves[i];
+  for (int i = threadIdx.x; i < LK; i += blockDim.x) s.g[i] = g[(int64_t)qi * LK + i];
+  for (int i = threadIdx.x; i < d; i += blockDim.x) s.q[i] = q[(int64_t)qi * d + i];
+}
+
+__device__ inline float slot_hw(const float* __restrict__ p, const float* g, int K) {
+  float hw = 0.0f;
+  for (int k = 0; k < K; ++k) hw = fmaxf(hw, fabsf(__ldg(p + k) - g[k]));
+  return hw;
+}
+
+__device__ inline int slot_bin(float hw, const float* halves, int steps) {
+  int b = 0;
+  for (int j = 0; j < steps; ++j) b += hw > halves[j];
+  return b;
+}
+
+template <bool kExact>
+__device__ inline float slot_d2(const float* __restrict__ x, const float* q, int d,
+                                float nrm, float q2) {
+  float acc = 0.0f;
+  if constexpr (kExact) {
+    for (int i = 0; i < d; ++i) {
+      const float t = __ldg(x + i) - q[i];
+      acc = fmaf(t, t, acc);
+    }
+    return acc;
+  } else {
+    for (int i = 0; i < d; ++i) acc = fmaf(__ldg(x + i), q[i], acc);
+    return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
+  }
+}
+
+// Lexicographic (d, id) "a < b".
+__device__ inline bool pair_less(float ad, int ai, float bd, int bi) {
+  return ad < bd || (ad == bd && ai < bi);
+}
+
+// Phase 2: per-bin counts and distinct top-ks, one warp per bin.
+__device__ void select_bins(const Stage& s, int C, int steps, int ks, int n,
+                            float* __restrict__ bd, int* __restrict__ bi,
+                            int* __restrict__ cnt) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int j = threadIdx.x >> 5; j < steps; j += nwarps) {
+    int in_bin = 0;
+    for (int c = lane; c < C; c += 32) in_bin += s.bin[c] == j;
+    for (int off = 16; off > 0; off >>= 1) in_bin += __shfl_xor_sync(kFullMask, in_bin, off);
+    if (lane == 0) cnt[j] = in_bin;
+
+    float last_d = -INFINITY;
+    int last_i = INT_MIN;
+    int r = 0;
+    for (; r < ks; ++r) {
+      float best_d = INFINITY;
+      int best_i = INT_MAX;
+      for (int c = lane; c < C; c += 32) {
+        if (s.bin[c] != j) continue;
+        const float dv = s.d2[c];
+        const int iv = s.id[c];
+        if (pair_less(last_d, last_i, dv, iv) && pair_less(dv, iv, best_d, best_i)) {
+          best_d = dv;
+          best_i = iv;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(kFullMask, best_d, off);
+        const int oi = __shfl_xor_sync(kFullMask, best_i, off);
+        if (pair_less(od, oi, best_d, best_i)) {
+          best_d = od;
+          best_i = oi;
+        }
+      }
+      if (!(best_d < INFINITY)) break;  // warp-uniform: every lane holds the min
+      if (lane == 0) {
+        bd[j * ks + r] = best_d;
+        bi[j * ks + r] = best_i;
+      }
+      last_d = best_d;
+      last_i = best_i;
+    }
+    for (int rr = r + lane; rr < ks; rr += 32) {
+      bd[j * ks + rr] = INFINITY;
+      bi[j * ks + rr] = n;
+    }
+  }
+}
+
+// B1: slots are rows of the selected STR blocks of the flattened (L*nb)
+// block axis; block ids outside [0, lnb) contribute nothing, not even to cnt.
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads) fused_window_search_kernel(
+    const int* __restrict__ blk, const float* __restrict__ halves,
+    const float* __restrict__ proj, const float* __restrict__ x,
+    const float* __restrict__ nrm, const int* __restrict__ ids,
+    const float* __restrict__ g, const float* __restrict__ q,
+    const float* __restrict__ q2, float* __restrict__ bd, int* __restrict__ bi,
+    int* __restrict__ cnt, int S, int M, int lnb, int B, int K, int d, int L,
+    int steps, int ks, int n) {
+  extern __shared__ __align__(16) char smem[];
+  const int qi = blockIdx.x;
+  const int C = S * B;
+  const Stage s = carve(smem, steps, L * K, d, C);
+  stage_query(s, halves, g, q, qi, steps, L * K, d);
+  __syncthreads();
+
+  const float qq = q2[qi];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int slot = c / B;
+    const int b = c - slot * B;
+    const int bk = blk[(int64_t)qi * S + slot];
+    float dv = INFINITY;
+    int iv = n;
+    int bin = steps;
+    if (bk >= 0 && bk < lnb) {
+      const int64_t row = (int64_t)bk * B + b;
+      bin = slot_bin(slot_hw(proj + row * K, s.g + (slot / M) * K, K), s.halves, steps);
+      if (bin < steps) {
+        dv = slot_d2<kExact>(x + row * d, s.q, d, nrm[row], qq);
+        iv = ids[row];
+      }
+    }
+    s.d2[c] = dv;
+    s.id[c] = iv;
+    s.bin[c] = bin;
+  }
+  __syncthreads();
+  select_bins(s, C, steps, ks, n, bd + (int64_t)qi * steps * ks,
+              bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
+}
+
+// B2: slots are pre-gathered (Q, L, Ct, .) candidates; invalid slots carry
+// +inf projections, so hw = +inf keeps them out of every bin.
+template <bool kExact>
+__global__ void __launch_bounds__(kThreads) fused_cand_search_kernel(
+    const float* __restrict__ cproj, const float* __restrict__ cx,
+    const float* __restrict__ cnrm, const int* __restrict__ cids,
+    const float* __restrict__ halves, const float* __restrict__ g,
+    const float* __restrict__ q, const float* __restrict__ q2,
+    float* __restrict__ bd, int* __restrict__ bi, int* __restrict__ cnt, int L,
+    int Ct, int K, int d, int steps, int ks, int n) {
+  extern __shared__ __align__(16) char smem[];
+  const int qi = blockIdx.x;
+  const int C = L * Ct;
+  const Stage s = carve(smem, steps, L * K, d, C);
+  stage_query(s, halves, g, q, qi, steps, L * K, d);
+  __syncthreads();
+
+  const float qq = q2[qi];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int64_t row = (int64_t)qi * C + c;
+    float dv = INFINITY;
+    int iv = n;
+    const int bin = slot_bin(slot_hw(cproj + row * K, s.g + (c / Ct) * K, K), s.halves, steps);
+    if (bin < steps) {
+      dv = slot_d2<kExact>(cx + row * d, s.q, d, cnrm[row], qq);
+      iv = cids[row];
+    }
+    s.d2[c] = dv;
+    s.id[c] = iv;
+    s.bin[c] = bin;
+  }
+  __syncthreads();
+  select_bins(s, C, steps, ks, n, bd + (int64_t)qi * steps * ks,
+              bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block of either kernel asks for.
+size_t fused_search_smem_bytes(int steps, int LK, int d, int C) {
+  return stage_bytes(steps, LK, d, C);
+}
+
+const char* fused_search_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Returns a cudaError_t (0 = launched).  Launches on `stream`, no sync.
+int fused_window_search_launch(const int* blk, const float* halves, const float* proj,
+                               const float* x, const float* nrm, const int* ids,
+                               const float* g, const float* q, const float* q2,
+                               float* bd, int* bi, int* cnt, int Q, int S, int M,
+                               int lnb, int B, int K, int d, int L, int steps, int ks,
+                               int n, int exact, cudaStream_t stream) {
+  const size_t smem = stage_bytes(steps, L * K, d, S * B);
+  auto kernel = exact ? fused_window_search_kernel<true> : fused_window_search_kernel<false>;
+  const int err = prepare(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<Q, kThreads, smem, stream>>>(blk, halves, proj, x, nrm, ids, g, q, q2, bd, bi,
+                                        cnt, S, M, lnb, B, K, d, L, steps, ks, n);
+  return (int)cudaGetLastError();
+}
+
+int fused_cand_search_launch(const float* cproj, const float* cx, const float* cnrm,
+                             const int* cids, const float* halves, const float* g,
+                             const float* q, const float* q2, float* bd, int* bi,
+                             int* cnt, int Q, int L, int Ct, int K, int d, int steps,
+                             int ks, int n, int exact, cudaStream_t stream) {
+  const size_t smem = stage_bytes(steps, L * K, d, L * Ct);
+  auto kernel = exact ? fused_cand_search_kernel<true> : fused_cand_search_kernel<false>;
+  const int err = prepare(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<Q, kThreads, smem, stream>>>(cproj, cx, cnrm, cids, halves, g, q, q2, bd, bi,
+                                        cnt, L, Ct, K, d, steps, ks, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

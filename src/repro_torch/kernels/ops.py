@@ -1,0 +1,190 @@
+"""Wrappers around the CUDA kernels: checks, output allocation, launch.
+
+A wrapper given CPU tensors runs the kernel's plain twin (``ref.py``);
+given CUDA tensors it launches the kernel on the current stream, or
+raises.  It never falls back from one to the other.  ``launches`` counts
+kernel launches per wrapper, so a run can show which kernels its path
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import fused_cand_search_ref, fused_window_search_ref
+
+__all__ = ["fused_window_search", "fused_cand_search", "launches", "reset_launches"]
+
+#: kernel launches per wrapper since the last ``reset_launches()``
+launches = {"fused_window_search": 0, "fused_cand_search": 0}
+
+_MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+_MODES = ("norm", "exact")
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device type {kind!r}")
+    return kind == "cuda"
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _MODES:
+        raise NotImplementedError(
+            f"mode {mode!r}: only {_MODES} are ported; the bf16/int8 modes "
+            "come with the quantized path (ROADMAP A14/B3)"
+        )
+
+
+def _prepare(lib, steps: int, LK: int, d: int, C: int, ks: int, n: int):
+    """Shape guards shared by both kernels."""
+    smem = lib.fused_search_smem_bytes(steps, LK, d, C)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"{C} candidate slots per query need {smem} bytes of shared "
+            f"memory; the kernel takes at most {_MAX_SMEM}"
+        )
+    if ks < 1 or not 0 <= n < 2**31 - 1:
+        raise ValueError(f"unsupported ks={ks} or n={n}")
+
+
+def _outputs(Qn: int, steps: int, ks: int, device):
+    return (
+        torch.empty((Qn, steps, ks), dtype=torch.float32, device=device),
+        torch.empty((Qn, steps, ks), dtype=torch.int32, device=device),
+        torch.empty((Qn, steps), dtype=torch.int32, device=device),
+    )
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.fused_search_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def fused_window_search(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
+                        ids_blocks, g, q, *, M: int, ks: int, n: int,
+                        mode: str = "norm"):
+    """Fused one-pass search over the selected STR blocks (kernel B1).
+
+    Args:
+      blk_idx: (Q, S) int32 flattened block ids, S = L*M (ids outside
+        [0, L*nb) are invalid slots and contribute nothing).
+      halves: (steps,) f32 schedule half window widths, ascending.
+      proj_blocks: (L*nb, B, K) f32; x_blocks: (L*nb, B, d) f32;
+      norm_blocks: (L*nb, B) f32 (+inf padded); ids_blocks: (L*nb, B) int32;
+      g: (Q, L, K) f32; q: (Q, d) f32.
+      M: blocks per table (slot s belongs to table s // M); ks: bin width;
+      n: the id of unfilled slots; mode: 'norm' | 'exact'.
+
+    Returns: bins_d (Q, steps, ks) f32 ascending, bins_i (Q, steps, ks)
+    int32 (``n`` unfilled), cnt (Q, steps) int32 slots per bin.
+    """
+    _check_mode(mode)
+    args = (blk_idx, halves, proj_blocks, x_blocks, norm_blocks, ids_blocks, g, q)
+    if not _on_cuda(*args):
+        return fused_window_search_ref(*args, M=M, ks=ks, n=n, mode=mode)
+
+    Qn, S = blk_idx.shape
+    lnb, B, K = proj_blocks.shape
+    d = x_blocks.shape[-1]
+    L = g.shape[1]
+    steps = halves.shape[0]
+    if S != L * M:
+        raise ValueError(f"S={S} slots but L*M={L * M}")
+    f32, i32 = torch.float32, torch.int32
+    _check("blk_idx", blk_idx, i32, (Qn, S))
+    _check("halves", halves, f32, (steps,))
+    _check("proj_blocks", proj_blocks, f32, (lnb, B, K))
+    _check("x_blocks", x_blocks, f32, (lnb, B, d))
+    _check("norm_blocks", norm_blocks, f32, (lnb, B))
+    _check("ids_blocks", ids_blocks, i32, (lnb, B))
+    _check("g", g, f32, (Qn, L, K))
+    _check("q", q, f32, (Qn, d))
+    lib = _build.load()
+    _prepare(lib, steps, L * K, d, S * B, ks, n)
+    bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
+    if Qn == 0:
+        return bd, bi, cnt
+    q2 = torch.sum(torch.square(q), dim=-1)
+    with torch.cuda.device(q.device):
+        err = lib.fused_window_search_launch(
+            *map(_ptr, (blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
+                        ids_blocks, g, q, q2, bd, bi, cnt)),
+            Qn, S, M, lnb, B, K, d, L, steps, ks, n, int(mode == "exact"),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(lib, err, "fused_window_search")
+    launches["fused_window_search"] += 1
+    return bd, bi, cnt
+
+
+def fused_cand_search(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q, *,
+                      ks: int, n: int, mode: str = "norm"):
+    """Fused one-pass search over pre-gathered candidates (kernel B2).
+
+    Args:
+      cand_proj: (Q, L, Ct, K) f32 (+inf on invalid slots — that alone
+        keeps them out of every bin); cand_x: (Q, L, Ct, d) f32;
+      cand_norms: (Q, L, Ct) f32 (+inf padded); cand_ids: (Q, L, Ct) int32;
+      halves: (steps,); g: (Q, L, K); q: (Q, d).
+
+    Returns: (bins_d, bins_i, cnt) as :func:`fused_window_search`.
+    """
+    _check_mode(mode)
+    args = (cand_proj, cand_x, cand_norms, cand_ids, halves, g, q)
+    if not _on_cuda(*args):
+        return fused_cand_search_ref(*args, ks=ks, n=n, mode=mode)
+
+    Qn, L, Ct, K = cand_proj.shape
+    d = cand_x.shape[-1]
+    steps = halves.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check("cand_proj", cand_proj, f32, (Qn, L, Ct, K))
+    _check("cand_x", cand_x, f32, (Qn, L, Ct, d))
+    _check("cand_norms", cand_norms, f32, (Qn, L, Ct))
+    _check("cand_ids", cand_ids, i32, (Qn, L, Ct))
+    _check("halves", halves, f32, (steps,))
+    _check("g", g, f32, (Qn, L, K))
+    _check("q", q, f32, (Qn, d))
+    lib = _build.load()
+    _prepare(lib, steps, L * K, d, L * Ct, ks, n)
+    bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
+    if Qn == 0:
+        return bd, bi, cnt
+    q2 = torch.sum(torch.square(q), dim=-1)
+    with torch.cuda.device(q.device):
+        err = lib.fused_cand_search_launch(
+            *map(_ptr, (cand_proj, cand_x, cand_norms, cand_ids, halves, g, q,
+                        q2, bd, bi, cnt)),
+            Qn, L, Ct, K, d, steps, ks, n, int(mode == "exact"),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(lib, err, "fused_cand_search")
+    launches["fused_cand_search"] += 1
+    return bd, bi, cnt

@@ -1,0 +1,271 @@
+"""The fused search kernels: twins vs the reference's Pallas kernels
+(interpret mode) and ``fused_search_ref``, the merge primitives vs the
+reference, and — on a CUDA device only — each kernel vs its twin.
+
+Inputs are made with numpy and handed to both packages.  The reference
+side comes in through the ``R`` fixture, so that the CUDA cases also run
+where JAX is not installed.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import merge_dedup_topk  # noqa: E402
+from repro_torch.kernels import fused_cand_search, fused_window_search, launches  # noqa: E402
+from repro_torch.kernels import ref as twin  # noqa: E402
+
+IMAX = np.iinfo(np.int32).max
+
+
+@pytest.fixture(scope="module")
+def R():
+    return pytest.importorskip("_torch_parity")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _halves(steps):
+    return np.asarray([0.4 * 1.5 ** j for j in range(steps)], np.float32)
+
+
+def _mk_window(seed, Q, L, M, nb, B, K, d, steps):
+    """test_kernels.py::_mk_window's construction, from numpy: each table
+    holds every slot id at most once, ids >= n are +inf-padded slots, and
+    the block ids include the invalid sentinel L*nb."""
+    rng = np.random.default_rng(seed)
+    lnb = L * nb
+    n = lnb * B - 3
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    ids = rng.permutation(lnb * B).reshape(lnb, B).astype(np.int32)
+    vec = np.where((ids < n)[..., None], data[np.minimum(ids, n - 1)], 0.0).astype(np.float32)
+    nrm = np.where(ids < n, np.sum(vec * vec, axis=-1), np.inf).astype(np.float32)
+    proj = np.where((ids < n)[..., None], rng.standard_normal((lnb, B, K)) * 2.0,
+                    np.inf).astype(np.float32)
+    blk = rng.integers(0, lnb + 1, (Q, L * M)).astype(np.int32)
+    g = rng.standard_normal((Q, L, K)).astype(np.float32)
+    q = rng.standard_normal((Q, d)).astype(np.float32)
+    return (blk, _halves(steps), proj, vec, nrm, ids, g, q), n
+
+
+def _mk_cand(seed, Q, L, Ct, K, d, steps, n=4096):
+    """test_kernels.py's gathered inputs: every 7th slot invalid (+inf
+    projection and norm)."""
+    rng = np.random.default_rng(seed)
+    cp = (rng.standard_normal((Q, L, Ct, K)) * 2.0).astype(np.float32)
+    cx = rng.standard_normal((Q, L, Ct, d)).astype(np.float32)
+    cn = np.sum(cx * cx, axis=-1).astype(np.float32)
+    ci = rng.integers(0, n, (Q, L, Ct)).astype(np.int32)
+    cp[:, :, ::7, :] = np.inf
+    cn[:, :, ::7] = np.inf
+    g = rng.standard_normal((Q, L, K)).astype(np.float32)
+    q = rng.standard_normal((Q, d)).astype(np.float32)
+    return (cp, cx, cn, ci, _halves(steps), g, q), n
+
+
+def _t(arrays, device="cpu"):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _assert_bins_equal(got, ref):
+    """test_kernels.py::_assert_bins_equal: counts exact, distances
+    allclose, ids as sets per (query, bin) over the finite entries."""
+    gd, gi, gc = (np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x) for x in got)
+    rd, ri, rc = map(np.asarray, ref)
+    np.testing.assert_array_equal(gc, rc)
+    np.testing.assert_allclose(gd, rd, rtol=1e-5, atol=1e-5)
+    Qn, steps, _ = gd.shape
+    for qq in range(Qn):
+        for j in range(steps):
+            finite = np.isfinite(rd[qq, j])
+            assert set(gi[qq, j][finite]) == set(ri[qq, j][finite]), (qq, j)
+            assert (gi[qq, j][~np.isfinite(gd[qq, j])] != IMAX).all()
+
+
+WINDOW_SHAPES = [  # (Q, L, M, nb, B, K, d, ks), test_kernels.py:223-226
+    (2, 2, 4, 8, 32, 4, 16, 5),
+    (1, 3, 8, 8, 64, 12, 96, 20),  # M == nb
+]
+CAND_SHAPES = [  # (Q, L, Ct, K, d, ks), test_kernels.py:252-255
+    (2, 3, 64, 4, 16, 5),
+    (1, 2, 300, 12, 96, 20),  # ragged Ct
+]
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+@pytest.mark.parametrize("steps", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["norm", "exact"])
+def test_window_twin_matches_reference(R, shape, steps, mode):
+    Q, L, M, nb, B, K, d, ks = shape
+    args, n = _mk_window(Q + L * M + nb + steps, Q, L, M, nb, B, K, d, steps)
+    pallas, oracle = R.fused_window(*args, M=M, ks=ks, n=n, mode=mode)
+    got = fused_window_search(*_t(args), M=M, ks=ks, n=n, mode=mode)
+    _assert_bins_equal(got, pallas)
+    _assert_bins_equal(got, oracle)
+
+
+@pytest.mark.parametrize("shape", CAND_SHAPES)
+@pytest.mark.parametrize("steps", [1, 6])
+@pytest.mark.parametrize("mode", ["norm", "exact"])
+def test_cand_twin_matches_reference(R, shape, steps, mode):
+    Q, L, Ct, K, d, ks = shape
+    args, n = _mk_cand(Q * Ct + d + steps, Q, L, Ct, K, d, steps)
+    pallas, oracle = R.fused_cand(*args, ks=ks, n=n, mode=mode)
+    got = fused_cand_search(*_t(args), ks=ks, n=n, mode=mode)
+    _assert_bins_equal(got, pallas)
+    _assert_bins_equal(got, oracle)
+
+
+def _invalid_slot_case():
+    """test_kernels.py::test_invalid_slots_never_contribute: block 0
+    matches the query exactly (hw = 0, d2 = 0) and must still contribute
+    nothing through an invalid select slot."""
+    L, M, nb, B, K, d = 1, 4, 4, 8, 4, 8
+    lnb = L * nb
+    n = lnb * B
+    q = np.random.default_rng(5).standard_normal((1, d)).astype(np.float32)
+    g = np.zeros((1, L, K), np.float32)
+    proj = np.zeros((lnb, B, K), np.float32)
+    vec = np.broadcast_to(q[0], (lnb, B, d)).copy()
+    nrm = np.full((lnb, B), np.sum(q * q), np.float32)
+    ids = np.arange(lnb * B, dtype=np.int32).reshape(lnb, B)
+    return (proj, vec, nrm, ids, g, q), M, B, n, lnb
+
+
+def _check_invalid_slots(device):
+    (proj, vec, nrm, ids, g, q), M, B, n, lnb = _invalid_slot_case()
+    halves = _halves(4)
+    for blk, want_cnt in ((np.full((1, M), lnb, np.int32), 0),
+                          (np.asarray([[2, lnb, lnb, lnb]], np.int32), B)):
+        bd, bi, cnt = (x.cpu().numpy() for x in fused_window_search(
+            *_t((blk, halves, proj, vec, nrm, ids, g, q), device),
+            M=M, ks=B, n=n, mode="norm"))
+        assert int(cnt.sum()) == want_cnt
+        got_ids = set(bi[np.isfinite(bd)].tolist())
+        assert got_ids == (set(ids[2].tolist()) if want_cnt else set())
+        assert (bi[~np.isfinite(bd)] == n).all()
+
+
+def test_invalid_slots_never_contribute():
+    _check_invalid_slots("cpu")
+
+
+def test_merge_topk_pins(R):
+    """The two pins of test_kernels.py:415-440, against the reference."""
+    cases = [
+        ([1.0, 2.0, 3.0, np.inf], [7, 7, 9, 0], [1.0, 2.0, 3.0], [7, 7, 9]),
+        ([2.0, 2.0, 2.0, 5.0], [4, 4, 4, 8], [2.0, 5.0, np.inf], [4, 8, IMAX]),
+    ]
+    for cd, ci, want_d, want_i in cases:
+        cd = np.asarray(cd, np.float32)
+        ci = np.asarray(ci, np.int32)
+        out_d = np.full((3,), np.inf, np.float32)
+        out_i = np.full((3,), IMAX, np.int32)
+        nd, ni = twin.merge_topk(*_t((cd, ci, out_d, out_i)), 3)
+        rd, ri = map(np.asarray, R.merge_topk(cd, ci, out_d, out_i, 3))
+        np.testing.assert_array_equal(nd.numpy(), want_d)
+        np.testing.assert_array_equal(ni.numpy(), want_i)
+        np.testing.assert_array_equal(nd.numpy(), rd)
+        np.testing.assert_array_equal(ni.numpy(), ri)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_merge_dedup_topk_matches_reference(R, seed):
+    """test_kernels.py::test_merge_dedup_topk_property: duplicates, exact
+    ties and all-inf rows, against the reference and a host oracle."""
+    rng = np.random.default_rng(seed)
+    n, Qn = 64, 3
+    k, a, b = int(rng.integers(1, 13)), int(rng.integers(1, 17)), int(rng.integers(1, 25))
+    run_d = np.sort(rng.choice([0.5, 1.0, 2.0, np.inf], (Qn, a)), axis=1).astype(np.float32)
+    run_i = np.where(np.isfinite(run_d), rng.integers(0, n, (Qn, a)), n).astype(np.int32)
+    new_d = rng.choice([0.25, 0.5, 1.0, 3.0, np.inf], (Qn, b)).astype(np.float32)
+    new_i = np.where(np.isfinite(new_d), rng.integers(0, n, (Qn, b)), n).astype(np.int32)
+    if seed % 3 == 0:
+        new_d[0, :] = np.inf
+    gd, gi = (x.numpy() for x in merge_dedup_topk(*_t((run_d, run_i, new_d, new_i)), n, k))
+    rd, ri = map(np.asarray, R.merge_dedup_topk(run_d, run_i, new_d, new_i, n, k))
+    np.testing.assert_array_equal(gd, rd)
+    np.testing.assert_array_equal(gi, ri)
+    for qq in range(Qn):
+        pairs = {(float(x), int(i)) for x, i in zip(np.r_[run_d[qq], new_d[qq]],
+                                                    np.r_[run_i[qq], new_i[qq]])
+                 if np.isfinite(x)}
+        want = sorted(pairs)[:k]
+        np.testing.assert_array_equal(gd[qq], [p[0] for p in want] + [np.inf] * (k - len(want)))
+        np.testing.assert_array_equal(gi[qq], [p[1] for p in want] + [n] * (k - len(want)))
+
+
+def test_merge_dedup_topk_tie_overflow():
+    """More than k candidates at one distance: the k smallest ids win."""
+    n, k = 100, 4
+    run_d = torch.full((1, k), torch.inf)
+    run_i = torch.full((1, k), n, dtype=torch.int32)
+    new_d = torch.full((1, 8), 2.0)
+    new_i = torch.tensor([[31, 3, 55, 14, 90, 2, 77, 41]], dtype=torch.int32)
+    gd, gi = merge_dedup_topk(run_d, run_i, new_d, new_i, n, k)
+    assert gd[0].tolist() == [2.0] * k
+    assert gi[0].tolist() == [2, 3, 14, 31]
+
+
+def test_wrappers_reject_unported_modes_and_mixed_devices():
+    args, n = _mk_window(0, 1, 2, 4, 8, 32, 4, 16, 2)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fused_window_search(*_t(args), M=4, ks=5, n=n, mode="bf16")
+    cargs, n = _mk_cand(0, 1, 2, 16, 4, 8, 2)
+    with pytest.raises(NotImplementedError, match="int8"):
+        fused_cand_search(*_t(cargs), ks=5, n=n, mode="int8")
+    bad = _t(args)
+    bad[0] = bad[0].to("meta")
+    with pytest.raises(ValueError, match="devices"):
+        fused_window_search(*bad, M=4, ks=5, n=n)
+
+
+# ---------------------------------------------------- on a CUDA device only
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WINDOW_SHAPES + [(8, 3, 8, 8, 64, 12, 24, 50)])
+@pytest.mark.parametrize("steps", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["norm", "exact"])
+def test_window_kernel_matches_twin(cuda, shape, steps, mode):
+    Q, L, M, nb, B, K, d, ks = shape
+    args, n = _mk_window(Q + L * M + nb + steps, Q, L, M, nb, B, K, d, steps)
+    before = launches["fused_window_search"]
+    got = fused_window_search(*_t(args, cuda), M=M, ks=ks, n=n, mode=mode)
+    torch.cuda.synchronize()
+    assert launches["fused_window_search"] == before + 1
+    _assert_bins_equal(got, fused_window_search(*_t(args), M=M, ks=ks, n=n, mode=mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CAND_SHAPES + [(4, 3, 320, 10, 24, 50)])
+@pytest.mark.parametrize("steps", [1, 6])
+@pytest.mark.parametrize("mode", ["norm", "exact"])
+def test_cand_kernel_matches_twin(cuda, shape, steps, mode):
+    Q, L, Ct, K, d, ks = shape
+    args, n = _mk_cand(Q * Ct + d + steps, Q, L, Ct, K, d, steps)
+    before = launches["fused_cand_search"]
+    got = fused_cand_search(*_t(args, cuda), ks=ks, n=n, mode=mode)
+    torch.cuda.synchronize()
+    assert launches["fused_cand_search"] == before + 1
+    _assert_bins_equal(got, fused_cand_search(*_t(args), ks=ks, n=n, mode=mode))
+
+
+@pytest.mark.cuda
+def test_kernel_invalid_slots_never_contribute(cuda):
+    _check_invalid_slots(cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_oversized_pool(cuda):
+    """More candidate slots than the block's shared memory holds raise
+    before any launch."""
+    args, n = _mk_cand(1, 1, 4, 8000, 4, 8, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_cand_search(*_t(args, cuda), ks=5, n=n)

@@ -10,9 +10,20 @@
 from .params import DBLSHParams, alpha_of_gamma, rho_star
 from .hashing import collision_prob, project, sample_projections
 from .index import DBLSHIndex, build, compute_norm_blocks, from_arrays
-from .query import merge_dedup_topk
+from .query import merge_dedup_topk, probe_radius, rc_nn, search, search_batch
 from .baselines import brute_force
-from .serve_search import ENGINES, search_batch_fixed, validate_engine
+from .serve_search import (
+    ENGINES,
+    TERM_C1,
+    TERM_C2,
+    TERM_EXHAUSTED,
+    PendingSearch,
+    Termination,
+    search_batch_fixed,
+    search_batch_fixed_dispatch,
+    search_batch_fixed_ref,
+    validate_engine,
+)
 
 __all__ = [
     "DBLSHParams",
@@ -25,9 +36,20 @@ __all__ = [
     "build",
     "compute_norm_blocks",
     "from_arrays",
-    "merge_dedup_topk",
-    "brute_force",
-    "ENGINES",
+    "search",
+    "search_batch",
     "search_batch_fixed",
+    "search_batch_fixed_dispatch",
+    "search_batch_fixed_ref",
+    "Termination",
+    "PendingSearch",
+    "ENGINES",
+    "TERM_EXHAUSTED",
+    "TERM_C1",
+    "TERM_C2",
     "validate_engine",
+    "merge_dedup_topk",
+    "rc_nn",
+    "probe_radius",
+    "brute_force",
 ]

@@ -20,9 +20,16 @@ Three verify engines:
 The fused engines bin every slot by its first admitting step and keep a
 per-(query, step) top-k, so step j's merge folds k pre-reduced entries.
 On CPU tensors they run the kernels' plain twins.
+
+``search_batch_fixed_ref`` keeps the multi-pass algorithm (re-select,
+re-gather and re-verify at every radius, kernels B6/B7 on its fused
+engines): the equivalence oracle of the one-pass pipeline and the
+baseline of its speedup.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -32,17 +39,84 @@ from .. import kernels
 from ..device import as_tensor, full_fp32, resolve_device
 from .index import DBLSHIndex
 from ..kernels.ref import slot_d2, take_fill
-from .query import merge_dedup_topk
+from .query import first_of_group, lexsort, merge_dedup_topk
 
-__all__ = ["search_batch_fixed", "validate_engine", "ENGINES"]
+__all__ = [
+    "Termination",
+    "search_batch_fixed",
+    "search_batch_fixed_ref",
+    "search_batch_fixed_dispatch",
+    "PendingSearch",
+    "validate_engine",
+    "ENGINES",
+    "TERM_EXHAUSTED",
+    "TERM_C1",
+    "TERM_C2",
+]
 
 ENGINES = ("torch", "kernel", "inline")
+
+#: ``explain["term_cause"]`` codes: why a query's schedule stopped
+#: advancing.  C2 wins ties with C1 on the same step, as in the order of
+#: the done-mask updates.
+TERM_EXHAUSTED, TERM_C1, TERM_C2 = 0, 1, 2
 
 
 def validate_engine(engine: str) -> str:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: use " + " | ".join(ENGINES))
     return engine
+
+
+@dataclasses.dataclass(frozen=True)
+class Termination:
+    """The paper's terminate conditions (§IV-B/§IV-C) as a schedule policy.
+
+    ``termination=None`` keeps the plain fixed schedule: all ``steps``
+    radii run, with the C2 rule freezing finished queries' results.  A
+    ``Termination`` adds per-query done masks that gate every merge:
+
+    * **C1** (``use_c1``): a query is done once its windows have admitted
+      at least ``c1_budget`` verified candidate slots (cross-table
+      duplicates included) — the paper's candidate budget; ``0`` derives
+      ``2tL + k`` from the index params.
+    * **C2** (``use_c2``): a query is done once its k-th best distance is
+      ≤ c·r, which certifies a c²-approximate answer at radius r.
+    * **early exit** (``early_exit``): the schedule stops as soon as every
+      query of the batch is done.  Done queries are frozen, so the exit
+      does not change any result; it only skips work.
+    """
+
+    use_c1: bool = True
+    c1_budget: int = 0  # 0 -> the paper budget 2tL + k from the params
+    use_c2: bool = True
+    early_exit: bool = True
+
+
+def _check_engine_index(index: DBLSHIndex, engine: str, device):
+    validate_engine(engine)
+    device = resolve_device(device)
+    if index.device.type != device.type:
+        raise ValueError(f"index lies on {index.device}, search asked for {device}")
+    if engine == "inline" and not index.params.inline_vectors:
+        raise ValueError("engine 'inline' needs an index built with inline_vectors=True")
+
+
+def _schedule(p, r0: float, steps: int):
+    """The schedule in float32, by the reference's multiply chain
+    r_{j+1} = r_j · c: radii and half window widths 0.5·(w0·r_j), so
+    every admission compares against bit-identical values."""
+    c32, w32 = np.float32(p.c), np.float32(p.w0)
+    radii = [np.float32(r0)]
+    for _ in range(steps - 1):
+        radii.append(radii[-1] * c32)
+    return radii, [np.float32(0.5) * (w32 * r) for r in radii]
+
+
+def _c2_bound(p, r) -> float:
+    """C2's threshold (c·r)² in float32: the k-th best squared distance
+    must not exceed it."""
+    return float(np.square(np.float32(p.c) * r))
 
 
 def _select_blocks(index: DBLSHIndex, G: torch.Tensor, w: float):
@@ -162,7 +236,7 @@ def search_batch_fixed(
     engine: str = "torch",
     with_stats: bool = False,
     exact: bool = False,
-    termination=None,
+    termination: Termination | None = None,
     with_explain: bool = False,
     dtype: str = "fp32",
     *,
@@ -177,84 +251,113 @@ def search_batch_fixed(
       k, r0, steps: top-k (0 -> params.k), initial radius, schedule length.
       engine: 'torch' | 'kernel' | 'inline'.
       with_stats: also return per-query probe statistics.
-      exact: diff-form distances instead of the norm form.
-      termination, with_explain, dtype: only the reference's defaults
-        (None, False, 'fp32') are ported so far.
+      exact: diff-form distances instead of the norm form (bit-equal to
+        :func:`search_batch_fixed_ref` of the same engine).
+      termination: ``None`` runs the plain fixed schedule; a
+        :class:`Termination` adds the C1/C2 done masks and early exit.
+      with_explain: also return the per-step arrays the stats reduce away
+        (implies ``with_stats``).  Results are the same with it on or off.
+      dtype: only 'fp32' is ported so far.
       device: where to run (None -> the CUDA device); the index must lie
         there.
 
     Returns: (Qn, k) distances ascending, (Qn, k) int32 ids (``n`` when
     unfilled); with ``with_stats`` a third element ``{"radius_steps":
     (Qn,) int32, "candidates": (Qn,) int32}`` — schedule steps run before
-    the C2 rule fired, and distinct selected slots fetched while active
+    the query was done, and distinct selected slots fetched while active
     (each selected block counts its B slots once, at the step its window
-    first overlaps it).
+    first overlaps it).  With ``with_explain`` a fourth element::
+
+        {"step_half":    (steps,)    f32  per-step window halfwidths,
+         "step_slots":   (Qn, steps) i32  admitted slots per step (rows
+                                          sum to ``candidates``),
+         "term_cause":   (Qn,)       i32  TERM_EXHAUSTED | TERM_C1 | TERM_C2,
+         "final_radius": (Qn,)       f32  radius at termination}
     """
-    validate_engine(engine)
-    if termination is not None:
-        raise NotImplementedError("termination: C1/C2 early exit is not ported yet (ROADMAP A7)")
-    if with_explain:
-        raise NotImplementedError("with_explain: explain is not ported yet (ROADMAP A7)")
+    _check_engine_index(index, engine, device)
     if dtype != "fp32":
         raise NotImplementedError(f"dtype={dtype!r}: the quantized path is not ported yet (ROADMAP A14)")
-    device = resolve_device(device)
-    if index.device.type != device.type:
-        raise ValueError(f"index lies on {index.device}, search asked for {device}")
+    with_stats = with_stats or with_explain
     p = index.params
-    if engine == "inline" and not p.inline_vectors:
-        raise ValueError("engine 'inline' needs an index built with inline_vectors=True")
     k = k or p.k
     n, nb = index.n, index.nb
     L, M, B = p.L, p.max_blocks, p.block_size
     Q = as_tensor(Q, index.device).contiguous()
     Qn = Q.shape[0]
+    dev = Q.device
 
     # profiler spans named as the reference's named_scopes: a trace of
     # the device time lines up with the four stages by name
     with record_function("dblsh.project"), full_fp32():
         G = torch.einsum("lkd,qd->qlk", index.proj_vecs, Q).contiguous()  # (Qn, L, K)
 
-    # the schedule in float32, by the reference's multiply chain: the
-    # admission compares against the bit-identical half widths
-    c32, w32 = np.float32(p.c), np.float32(p.w0)
-    radii = [np.float32(r0)]
-    for _ in range(steps - 1):
-        radii.append(radii[-1] * c32)
-    halves = [np.float32(0.5) * (w32 * r) for r in radii]
+    radii, halves = _schedule(p, r0, steps)
 
     # select once, at the final radius (windows nest)
     with record_function("dblsh.select"):
-        blk, bhw = _select_blocks(index, G, float(w32 * radii[-1]))  # (L, Qn, M)
-        offs = (torch.arange(L, dtype=torch.int32, device=Q.device) * nb)[:, None, None]
+        blk, bhw = _select_blocks(index, G, float(np.float32(p.w0) * radii[-1]))  # (L, Qn, M)
+        offs = (torch.arange(L, dtype=torch.int32, device=dev) * nb)[:, None, None]
         blk_q = torch.where(blk < nb, blk + offs, L * nb).transpose(0, 1)
         blk_q = blk_q.reshape(Qn, L * M).contiguous()
         bhw_q = bhw.transpose(0, 1).reshape(Qn, L * M)
 
     # verify once: the fused bins (kernels B1/B2) or the (Qn, C) pool
     use_bins = engine in ("kernel", "inline")
+    if use_bins or with_explain:
+        halves_t = torch.tensor(np.array(halves, np.float32), device=dev)
     with record_function("dblsh.verify"):
         if use_bins:
-            halves_t = torch.tensor(np.array(halves, np.float32), device=Q.device)
-            bins_d, bins_i, _ = _fused_bins(index, blk_q, G, Q, halves_t, engine, exact, k)
+            bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,
+                                                  exact, k)
+            # C1's admitted count at step j is the slots of bins 0..j
+            cum_adm = torch.cumsum(bin_cnt, dim=1)
         else:
             ci = take_fill(index.ids_blocks.reshape(L * nb, B), blk_q, n).reshape(Qn, -1)
             d2, hw = _gather_pool(index, blk_q, G, Q, exact)
 
+    c1_thr = None
+    if termination is not None and termination.use_c1:
+        c1_thr = termination.c1_budget if termination.c1_budget > 0 else p.budget
+    use_c2 = termination is None or termination.use_c2
+    early_exit = termination is not None and termination.early_exit
+
+    best_d = torch.full((Qn, k), torch.inf, device=dev)
+    best_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
+    done = torch.zeros((Qn,), dtype=torch.bool, device=dev)
+    radius_steps = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+    candidates = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+    if with_explain:
+        step_slots = torch.zeros((Qn, steps), dtype=torch.int32, device=dev)
+        term_cause = torch.full((Qn,), TERM_EXHAUSTED, dtype=torch.int32, device=dev)
+        final_radius = torch.zeros((Qn,), dtype=torch.float32, device=dev)
+
+    def mark(fired, cause, r):
+        """Fold one rule's firing into the done mask (and the explain
+        record: the first rule to fire names the cause)."""
+        nonlocal done, term_cause, final_radius
+        if with_explain:
+            newly = fired & ~done
+            term_cause = torch.where(newly, cause, term_cause)
+            final_radius = torch.where(newly, float(r), final_radius)
+        done = done | fired
+
+    prev_half = -np.inf
     with record_function("dblsh.merge"):
-        best_d = torch.full((Qn, k), torch.inf, device=Q.device)
-        best_i = torch.full((Qn, k), n, dtype=torch.int32, device=Q.device)
-        done = torch.zeros((Qn,), dtype=torch.bool, device=Q.device)
-        radius_steps = torch.zeros((Qn,), dtype=torch.int32, device=Q.device)
-        candidates = torch.zeros((Qn,), dtype=torch.int32, device=Q.device)
-        prev_half = -np.inf
         for j in range(steps):
+            # early exit: stop once every query is done.  Reading the mask
+            # is one host sync per step; done queries are frozen, so the
+            # exit never changes a result
+            if early_exit and j > 0 and bool(done.all()):
+                break
             half = float(halves[j])
             if with_stats:
                 active = ~done
                 radius_steps += active.to(torch.int32)
                 newly = (bhw_q <= half) & (bhw_q > prev_half)
-                n_slots = newly.sum(dim=1, dtype=torch.int32) * B
-                candidates += torch.where(active, n_slots, 0)
+                n_slots = torch.where(active, newly.sum(dim=1, dtype=torch.int32) * B, 0)
+                candidates += n_slots
+                if with_explain:
+                    step_slots[:, j] = n_slots
             # on the fused path the step-j delta IS bin j
             if use_bins:
                 cd, cids = bins_d[:, j], bins_i[:, j]
@@ -265,10 +368,219 @@ def search_batch_fixed(
                 best_d, best_i = _masked_delta_merge(
                     best_d, best_i, delta, d2, ci, done, n, k)
             # C2: the k-th best within c·r certifies the answer
-            done = done | (best_d[:, k - 1] <= float(np.square(c32 * radii[j])))
+            if use_c2:
+                mark(best_d[:, k - 1] <= _c2_bound(p, radii[j]), TERM_C2, radii[j])
+            # C1: admitted slots with a finite distance (verified work)
+            if c1_thr is not None:
+                if use_bins:
+                    n_adm = cum_adm[:, j]
+                else:
+                    n_adm = ((hw <= half) & torch.isfinite(d2)).sum(dim=1)
+                mark(n_adm >= c1_thr, TERM_C1, radii[j])
             prev_half = half
+
+    out = (torch.sqrt(best_d), best_i)
+    if with_stats:
+        out += ({"radius_steps": radius_steps, "candidates": candidates},)
+    if with_explain:
+        # queries still running at the end stopped at the final radius
+        final_radius = torch.where(term_cause == TERM_EXHAUSTED, float(radii[-1]),
+                                   final_radius)
+        out += ({"step_half": halves_t, "step_slots": step_slots,
+                 "term_cause": term_cause, "final_radius": final_radius},)
+    return out
+
+
+def _merge_dedup_topk_lexsort(run_d, run_i, new_d, new_i, n: int, k: int):
+    """(Q, a) + (Q, b) -> (Q, k) dedup'd ascending merge: the multi-pass
+    oracle's merge, with the reference's tie order.  Ordered by id, then
+    distance, the first entry of each id group is its best distance;
+    ``lax.top_k`` then takes the lowest index among equal distances: the
+    first k of a stable ascending sort."""
+    d = torch.cat([run_d, new_d], dim=1)
+    i = torch.cat([run_i.to(torch.int32), new_i.to(torch.int32)], dim=1)
+    order = lexsort(d, i)
+    ids_s = torch.gather(i, 1, order)
+    d_s = torch.where(first_of_group(ids_s) & (ids_s < n), torch.gather(d, 1, order),
+                      torch.inf)
+    top_d, idx = torch.sort(d_s, dim=1, stable=True)
+    top_d, idx = top_d[:, :k], idx[:, :k]
+    ids = torch.gather(ids_s, 1, idx)
+    return top_d, torch.where(torch.isfinite(top_d), ids, n)
+
+
+def _verify_table(index: DBLSHIndex, li: int, blk, g, Q, w, engine: str, k: int):
+    """One table of one multi-pass step: the k best distinct in-window
+    (d2, id) pairs of its selected blocks.  blk: (Qn, M) block ids
+    (``nb`` = invalid); g: (Qn, K); w: float32 window width."""
+    p = index.params
+    n = index.n
+    if engine == "inline":
+        return kernels.window_verify(blk, index.proj_blocks[li], index.vec_blocks[li],
+                                     index.ids_blocks[li], g, Q, w, n=n, k=k)
+    Qn, M = blk.shape
+    B, K = p.block_size, p.K
+    pb = take_fill(index.proj_blocks[li], blk, torch.inf)  # (Qn, M, B, K)
+    ib = take_fill(index.ids_blocks[li], blk, n)
+    if p.inline_vectors:
+        vb = take_fill(index.vec_blocks[li], blk, 0.0)
+    else:
+        vb = take_fill(index.data, ib.reshape(Qn, -1), 0.0)
+    cp, cv, ci = pb.reshape(Qn, M * B, K), vb.reshape(Qn, M * B, -1), ib.reshape(Qn, M * B)
+    if engine == "kernel":
+        return kernels.candidate_verify(cp, cv, ci, g, Q, w, n=n, k=k)
+    # 'torch': the reference's jnp engine, lax.top_k's lowest-index ties
+    inbox = (torch.abs(cp - g[:, None, :]) <= float(np.float32(0.5) * w)).all(dim=-1)
+    d2 = torch.where(inbox & (ci < n), slot_d2(cv, Q[:, None, :], None, True), torch.inf)
+    d_l, idx = torch.sort(d2, dim=1, stable=True)
+    d_l, idx = d_l[:, :k], idx[:, :k]
+    return d_l, torch.where(torch.isfinite(d_l), torch.gather(ci, 1, idx), n)
+
+
+def search_batch_fixed_ref(
+    index: DBLSHIndex,
+    Q,
+    k: int = 0,
+    r0: float = 1.0,
+    steps: int = 8,
+    engine: str = "torch",
+    with_stats: bool = False,
+    *,
+    device=None,
+):
+    """Multi-pass reference: re-select, re-gather and re-verify at every
+    radius (the serving algorithm before one-pass probing).
+
+    The oracle of :func:`search_batch_fixed` (``exact=True`` gives
+    bit-equal results on the same engine) and the baseline of its
+    speedup.  Each step runs, per table, the engine's verify — kernel B6
+    (``inline``) or B7 (``kernel``), or plain torch — so the fused
+    engines launch L·steps kernels per search.  ``with_stats`` keeps the
+    multi-pass accounting: every selected block slot recounts at every
+    step it remains selected.
+
+    Returns: (Qn, k) distances ascending, (Qn, k) int32 ids (``n`` when
+    unfilled), and with ``with_stats`` ``{"radius_steps", "candidates"}``.
+    """
+    _check_engine_index(index, engine, device)
+    p = index.params
+    k = k or p.k
+    n, nb, B = index.n, index.nb, p.block_size
+    Q = as_tensor(Q, index.device).contiguous()
+    Qn = Q.shape[0]
+    dev = Q.device
+
+    # the one-pass search's span names, so one trace reads both paths
+    with record_function("dblsh.project"), full_fp32():
+        G = torch.einsum("lkd,qd->qlk", index.proj_vecs, Q)  # (Qn, L, K)
+    best_d = torch.full((Qn, k), torch.inf, device=dev)
+    best_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
+    done = torch.zeros((Qn,), dtype=torch.bool, device=dev)
+    radius_steps = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+    candidates = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+
+    radii, _ = _schedule(p, r0, steps)
+    for r in radii:
+        w = np.float32(p.w0) * r
+        with record_function("dblsh.select"):
+            blk, _ = _select_blocks(index, G, float(w))  # (L, Qn, M)
+        if with_stats:
+            active = ~done
+            radius_steps += active.to(torch.int32)
+            n_slots = (blk < nb).sum(dim=(0, 2), dtype=torch.int32) * B
+            candidates += torch.where(active, n_slots, 0)
+
+        step_d = torch.full((Qn, k), torch.inf, device=dev)
+        step_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
+        for li in range(p.L):
+            with record_function("dblsh.verify"):
+                d_l, i_l = _verify_table(index, li, blk[li].contiguous(),
+                                         G[:, li].contiguous(), Q, float(w), engine, k)
+            with record_function("dblsh.merge"):
+                step_d, step_i = _merge_dedup_topk_lexsort(step_d, step_i, d_l, i_l, n, k)
+
+        # masked merge: finished queries keep their result
+        with record_function("dblsh.merge"):
+            nd, ni = _merge_dedup_topk_lexsort(best_d, best_i, step_d, step_i, n, k)
+            best_d = torch.where(done[:, None], best_d, nd)
+            best_i = torch.where(done[:, None], best_i, ni)
+            done = done | (best_d[:, k - 1] <= _c2_bound(p, r))
 
     if with_stats:
         stats = {"radius_steps": radius_steps, "candidates": candidates}
         return torch.sqrt(best_d), best_i, stats
     return torch.sqrt(best_d), best_i
+
+
+class PendingSearch:
+    """Handle for a started, not yet awaited ``search_batch_fixed`` call.
+
+    PyTorch launches CUDA work asynchronously: the search returns tensors
+    whose values the card may still be computing.  The handle records a
+    CUDA event after the search on the current stream, so a serving loop
+    can do host work for the next batch before it waits:
+
+        pending = search_batch_fixed_dispatch(index, Q, k=10)
+        ...host work for the next batch...
+        dists, ids = pending.result()        # the first host sync
+
+    On the CPU the work is done when the call returns: ``ready()`` is
+    always true.
+    """
+
+    __slots__ = ("dists", "ids", "stats", "explain", "_event")
+
+    def __init__(self, dists, ids, stats=None, explain=None, event=None):
+        self.dists = dists
+        self.ids = ids
+        self.stats = stats
+        self.explain = explain  # per-step arrays on the device, or None
+        self._event = event
+
+    def ready(self) -> bool:
+        """True once the search's work on the card is complete (never
+        blocks)."""
+        return self._event is None or self._event.query()
+
+    def result(self):
+        """Block until complete; returns (dists, ids[, stats])."""
+        if self._event is not None:
+            self._event.synchronize()
+        if self.stats is not None:
+            return self.dists, self.ids, self.stats
+        return self.dists, self.ids
+
+
+def search_batch_fixed_dispatch(
+    index: DBLSHIndex,
+    Q,
+    k: int = 0,
+    r0: float = 1.0,
+    steps: int = 8,
+    engine: str = "torch",
+    with_stats: bool = False,
+    exact: bool = False,
+    termination: Termination | None = None,
+    with_explain: bool = False,
+    dtype: str = "fp32",
+    *,
+    device=None,
+) -> PendingSearch:
+    """Start a fixed-schedule search without waiting for the card.
+
+    Same arguments and numerics as :func:`search_batch_fixed` (it runs
+    that very call, so its results are bit-equal to the synchronous
+    path); ``result()`` of the returned :class:`PendingSearch` is the only
+    wait.  With ``termination.early_exit`` the call itself reads the done
+    mask once per step, so it returns only after the schedule's last step
+    was enqueued."""
+    out = search_batch_fixed(
+        index, Q, k=k, r0=r0, steps=steps, engine=engine, with_stats=with_stats,
+        exact=exact, termination=termination, with_explain=with_explain, dtype=dtype,
+        device=device,
+    )
+    event = None
+    if out[0].is_cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out[0].device))
+    return PendingSearch(*out, event=event)

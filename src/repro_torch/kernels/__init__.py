@@ -2,12 +2,21 @@
 PyTorch twins (``ref.py``).  Kernels are built at first CUDA use."""
 
 from . import ref
-from .ops import fused_cand_search, fused_window_search, launches, reset_launches
+from .ops import (
+    candidate_verify,
+    fused_cand_search,
+    fused_window_search,
+    launches,
+    reset_launches,
+    window_verify,
+)
 
 __all__ = [
+    "candidate_verify",
     "fused_cand_search",
     "fused_window_search",
     "launches",
     "reset_launches",
+    "window_verify",
     "ref",
 ]

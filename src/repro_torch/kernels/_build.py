@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels: ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.
 
-The library is built at first use into ``build/repro_torch_kernels/``
-at the root of the checkout (listed in ``.gitignore``), under a name
-keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing is built at import.
+Each source is compiled to an object by its own ``nvcc``, all started
+together, and the objects are linked into one library.  The library is
+built at first use into ``build/repro_torch_kernels/`` at the root of
+the checkout (listed in ``.gitignore``), under a name keyed by a hash of
+the sources, the headers they include and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  Nothing is
+built at import.
 """
 
 from __future__ import annotations
@@ -19,20 +22,22 @@ from pathlib import Path
 __all__ = ["build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "fused_search.cu",)
+_SOURCES = (_CSRC / "fused_search.cu", _CSRC / "window_verify.cu")
+_HEADERS = (_CSRC / "search_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "fused_search_smem_bytes": ((_I, _I, _I, _I), ctypes.c_size_t),
     "fused_search_error_string": ((_I,), ctypes.c_char_p),
     "fused_window_search_launch": ((_P,) * 12 + (_I,) * 12 + (_P,), _I),
     "fused_cand_search_launch": ((_P,) * 11 + (_I,) * 9 + (_P,), _I),
+    "verify_smem_bytes": ((_I, _I, _I), ctypes.c_size_t),
+    "window_verify_launch": ((_P,) * 6 + (_F,) + (_P,) * 2 + (_I,) * 8 + (_P,), _I),
+    "candidate_verify_launch": ((_P,) * 5 + (_F,) + (_P,) * 2 + (_I,) * 6 + (_P,), _I),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -48,9 +53,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
-    return _BUILD_DIR / f"fused_search_{h.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"search_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -61,14 +66,32 @@ def build() -> Path:
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True))
+        for cmd in ([nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_SOURCES, objs))
+    ]
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so
 

@@ -39,19 +39,15 @@
 //     the dedup relies on that;
 //   * block bases use 64-bit element offsets (the main path addresses
 //     3.2e8 floats of vec_blocks);
-//   * any d (no vector loads that would need d % 4 == 0).
+//   * any d (no vector loads that would need d % 4 == 0);
+//   * the staging, hw, d2 and selection helpers live in search_common.cuh,
+//     shared with the per-radius verify kernels (window_verify.cu).
 
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
+#include "search_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace dblsh;
 
 struct Stage {
   float* halves;  // (steps,)
@@ -83,15 +79,9 @@ __device__ inline void stage_query(const Stage& s, const float* __restrict__ hal
                                    const float* __restrict__ g,
                                    const float* __restrict__ q, int qi, int steps,
                                    int LK, int d) {
-  for (int i = threadIdx.x; i < steps; i += blockDim.x) s.halves[i] = halves[i];
-  for (int i = threadIdx.x; i < LK; i += blockDim.x) s.g[i] = g[(int64_t)qi * LK + i];
-  for (int i = threadIdx.x; i < d; i += blockDim.x) s.q[i] = q[(int64_t)qi * d + i];
-}
-
-__device__ inline float slot_hw(const float* __restrict__ p, const float* g, int K) {
-  float hw = 0.0f;
-  for (int k = 0; k < K; ++k) hw = fmaxf(hw, fabsf(__ldg(p + k) - g[k]));
-  return hw;
+  stage(s.halves, halves, steps);
+  stage(s.g, g + (int64_t)qi * LK, LK);
+  stage(s.q, q + (int64_t)qi * d, d);
 }
 
 __device__ inline int slot_bin(float hw, const float* halves, int steps) {
@@ -100,74 +90,20 @@ __device__ inline int slot_bin(float hw, const float* halves, int steps) {
   return b;
 }
 
-template <bool kExact>
-__device__ inline float slot_d2(const float* __restrict__ x, const float* q, int d,
-                                float nrm, float q2) {
-  float acc = 0.0f;
-  if constexpr (kExact) {
-    for (int i = 0; i < d; ++i) {
-      const float t = __ldg(x + i) - q[i];
-      acc = fmaf(t, t, acc);
-    }
-    return acc;
-  } else {
-    for (int i = 0; i < d; ++i) acc = fmaf(__ldg(x + i), q[i], acc);
-    return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
-  }
-}
-
-// Lexicographic (d, id) "a < b".
-__device__ inline bool pair_less(float ad, int ai, float bd, int bi) {
-  return ad < bd || (ad == bd && ai < bi);
-}
-
 // Phase 2: per-bin counts and distinct top-ks, one warp per bin.
 __device__ void select_bins(const Stage& s, int C, int steps, int ks, int n,
                             float* __restrict__ bd, int* __restrict__ bi,
                             int* __restrict__ cnt) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
+  const int* bin = s.bin;
   for (int j = threadIdx.x >> 5; j < steps; j += nwarps) {
     int in_bin = 0;
-    for (int c = lane; c < C; c += 32) in_bin += s.bin[c] == j;
+    for (int c = lane; c < C; c += 32) in_bin += bin[c] == j;
     for (int off = 16; off > 0; off >>= 1) in_bin += __shfl_xor_sync(kFullMask, in_bin, off);
     if (lane == 0) cnt[j] = in_bin;
-
-    float last_d = -INFINITY;
-    int last_i = INT_MIN;
-    int r = 0;
-    for (; r < ks; ++r) {
-      float best_d = INFINITY;
-      int best_i = INT_MAX;
-      for (int c = lane; c < C; c += 32) {
-        if (s.bin[c] != j) continue;
-        const float dv = s.d2[c];
-        const int iv = s.id[c];
-        if (pair_less(last_d, last_i, dv, iv) && pair_less(dv, iv, best_d, best_i)) {
-          best_d = dv;
-          best_i = iv;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(kFullMask, best_d, off);
-        const int oi = __shfl_xor_sync(kFullMask, best_i, off);
-        if (pair_less(od, oi, best_d, best_i)) {
-          best_d = od;
-          best_i = oi;
-        }
-      }
-      if (!(best_d < INFINITY)) break;  // warp-uniform: every lane holds the min
-      if (lane == 0) {
-        bd[j * ks + r] = best_d;
-        bi[j * ks + r] = best_i;
-      }
-      last_d = best_d;
-      last_i = best_i;
-    }
-    for (int rr = r + lane; rr < ks; rr += 32) {
-      bd[j * ks + rr] = INFINITY;
-      bi[j * ks + rr] = n;
-    }
+    warp_select(s.d2, s.id, C, ks, n, [bin, j](int c) { return bin[c] == j; },
+                bd + j * ks, bi + j * ks);
   }
 }
 
@@ -248,12 +184,6 @@ __global__ void __launch_bounds__(kThreads) fused_cand_search_kernel(
   __syncthreads();
   select_bins(s, C, steps, ks, n, bd + (int64_t)qi * steps * ks,
               bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
 }
 
 }  // namespace

@@ -14,12 +14,25 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import fused_cand_search_ref, fused_window_search_ref
+from .ref import (
+    candidate_verify_ref,
+    fused_cand_search_ref,
+    fused_window_search_ref,
+    window_verify_ref,
+)
 
-__all__ = ["fused_window_search", "fused_cand_search", "launches", "reset_launches"]
+__all__ = [
+    "fused_window_search",
+    "fused_cand_search",
+    "window_verify",
+    "candidate_verify",
+    "launches",
+    "reset_launches",
+]
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-launches = {"fused_window_search": 0, "fused_cand_search": 0}
+launches = {"fused_window_search": 0, "fused_cand_search": 0, "window_verify": 0,
+            "candidate_verify": 0}
 
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 _MODES = ("norm", "exact")
@@ -58,13 +71,20 @@ def _check_mode(mode: str) -> None:
 
 
 def _prepare(lib, steps: int, LK: int, d: int, C: int, ks: int, n: int):
-    """Shape guards shared by both kernels."""
-    smem = lib.fused_search_smem_bytes(steps, LK, d, C)
+    """Shape guards shared by both fused kernels."""
+    _check_smem(lib.fused_search_smem_bytes(steps, LK, d, C), C)
+    _check_k(ks, n)
+
+
+def _check_smem(smem: int, C: int) -> None:
     if smem > _MAX_SMEM:
         raise ValueError(
             f"{C} candidate slots per query need {smem} bytes of shared "
             f"memory; the kernel takes at most {_MAX_SMEM}"
         )
+
+
+def _check_k(ks: int, n: int) -> None:
     if ks < 1 or not 0 <= n < 2**31 - 1:
         raise ValueError(f"unsupported ks={ks} or n={n}")
 
@@ -188,3 +208,94 @@ def fused_cand_search(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q, *,
     _raise_on(lib, err, "fused_cand_search")
     launches["fused_cand_search"] += 1
     return bd, bi, cnt
+
+
+def _verify_launch(name: str, q: torch.Tensor, K: int, C: int, k: int, n: int, launch):
+    """Shared tail of the per-radius verify wrappers: guards, outputs,
+    the launch on the current stream, the count."""
+    d = q.shape[-1]
+    lib = _build.load()
+    _check_smem(lib.verify_smem_bytes(K, d, C), C)
+    _check_k(k, n)
+    Qn = q.shape[0]
+    bd = torch.empty((Qn, k), dtype=torch.float32, device=q.device)
+    bi = torch.empty((Qn, k), dtype=torch.int32, device=q.device)
+    if Qn == 0:
+        return bd, bi
+    with torch.cuda.device(q.device):
+        err = launch(lib, _ptr(bd), _ptr(bi),
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(lib, err, name)
+    launches[name] += 1
+    return bd, bi
+
+
+def window_verify(blk_idx, proj_blocks, vec_blocks, ids_blocks, g, q, w: float, *,
+                  n: int, k: int):
+    """Window verify of one table at one width, over its selected STR
+    blocks read in place (kernel B6, the multi-pass ``inline`` engine).
+
+    Args:
+      blk_idx: (Q, M) int32 block ids (ids outside [0, nb) are invalid
+        slots and contribute nothing).
+      proj_blocks: (nb, B, K) f32 (+inf padded); vec_blocks: (nb, B, d) f32;
+      ids_blocks: (nb, B) int32 (``n`` padded).
+      g: (Q, K) f32 query projections in this table; q: (Q, d) f32.
+      w: window width; a slot is in the window when max_k |p_k - g_k| <=
+        0.5 * w (in float32).
+      n: the id of unfilled entries (ids >= n never count); k: top-k.
+
+    Returns: (Q, k) squared distances ascending (+inf unfilled), (Q, k)
+    int32 ids (``n`` unfilled): the k lexicographically smallest distinct
+    (d2, id) pairs of the in-window slots.
+    """
+    args = (blk_idx, proj_blocks, vec_blocks, ids_blocks, g, q)
+    if not _on_cuda(*args):
+        return window_verify_ref(*args, w, n=n, k=k)
+
+    Qn, M = blk_idx.shape
+    nb, B, K = proj_blocks.shape
+    d = vec_blocks.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    _check("blk_idx", blk_idx, i32, (Qn, M))
+    _check("proj_blocks", proj_blocks, f32, (nb, B, K))
+    _check("vec_blocks", vec_blocks, f32, (nb, B, d))
+    _check("ids_blocks", ids_blocks, i32, (nb, B))
+    _check("g", g, f32, (Qn, K))
+    _check("q", q, f32, (Qn, d))
+    return _verify_launch(
+        "window_verify", q, K, M * B, k, n,
+        lambda lib, bd, bi, stream: lib.window_verify_launch(
+            *map(_ptr, args), float(w), bd, bi, Qn, M, nb, B, K, d, k, n, stream),
+    )
+
+
+def candidate_verify(cand_proj, cand_vecs, cand_ids, g, q, w: float, *, n: int, k: int):
+    """Window verify of pre-gathered candidates at one width (kernel B7,
+    the multi-pass ``kernel`` engine).
+
+    Args:
+      cand_proj: (Q, C, K) f32 (+inf on invalid slots: that alone keeps
+        them out of the window); cand_vecs: (Q, C, d) f32;
+      cand_ids: (Q, C) int32; g: (Q, K); q: (Q, d); w, n, k as
+        :func:`window_verify`.
+
+    Returns: (Q, k) squared distances and int32 ids, as :func:`window_verify`.
+    """
+    args = (cand_proj, cand_vecs, cand_ids, g, q)
+    if not _on_cuda(*args):
+        return candidate_verify_ref(*args, w, n=n, k=k)
+
+    Qn, C, K = cand_proj.shape
+    d = cand_vecs.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    _check("cand_proj", cand_proj, f32, (Qn, C, K))
+    _check("cand_vecs", cand_vecs, f32, (Qn, C, d))
+    _check("cand_ids", cand_ids, i32, (Qn, C))
+    _check("g", g, f32, (Qn, K))
+    _check("q", q, f32, (Qn, d))
+    return _verify_launch(
+        "candidate_verify", q, K, C, k, n,
+        lambda lib, bd, bi, stream: lib.candidate_verify_launch(
+            *map(_ptr, args), float(w), bd, bi, Qn, C, K, d, k, n, stream),
+    )

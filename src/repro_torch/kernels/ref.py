@@ -18,6 +18,8 @@ __all__ = [
     "bins_from_pool",
     "fused_window_search_ref",
     "fused_cand_search_ref",
+    "window_verify_ref",
+    "candidate_verify_ref",
 ]
 
 IMAX = 2**31 - 1
@@ -128,3 +130,37 @@ def fused_cand_search_ref(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q,
     d2 = slot_d2(cand_x, q[:, None, None, :], cand_norms, mode == "exact")
     return bins_from_pool(d2.reshape(Qn, -1), hw.reshape(Qn, -1),
                           cand_ids.reshape(Qn, -1), halves, n, ks)
+
+
+def candidate_verify_ref(cand_proj, cand_vecs, cand_ids, g, q, w: float, *,
+                         n: int, k: int):
+    """Twin of the per-radius gathered verify kernel (B7): the box test
+    ``max_k |p_k - g_k| <= 0.5 * w`` and ``id < n`` per slot, diff-form
+    d2 for the slots that pass, then the k lexicographically smallest
+    distinct (d2, id) pairs with finite d2 (unfilled: +inf / ``n``).
+
+    cand_proj: (Q, C, K) f32 (+inf on invalid slots); cand_vecs: (Q, C, d);
+    cand_ids: (Q, C) int32; g: (Q, K); q: (Q, d); w: window width."""
+    half = float(0.5 * torch.tensor(w, dtype=torch.float32))
+    hw = torch.abs(cand_proj - g[:, None, :]).amax(dim=-1)
+    inbox = (hw <= half) & (cand_ids < n)
+    d2 = slot_d2(cand_vecs, q[:, None, :], None, exact=True)
+    return topk_rounds(torch.where(inbox, d2, torch.inf), cand_ids.to(torch.int32),
+                       k, fill_id=n)
+
+
+def window_verify_ref(blk_idx, proj_blocks, vec_blocks, ids_blocks, g, q, w: float,
+                      *, n: int, k: int):
+    """Twin of the per-radius window verify kernel (B6): gather the
+    selected blocks of one table (ids outside [0, nb) gather +inf
+    projections, so they never pass the box test), then verify them as
+    :func:`candidate_verify_ref` does.
+
+    blk_idx: (Q, M) int32; proj_blocks: (nb, B, K); vec_blocks: (nb, B, d);
+    ids_blocks: (nb, B) int32; g: (Q, K); q: (Q, d); w: window width."""
+    Qn, M = blk_idx.shape
+    B, K = proj_blocks.shape[1:]
+    pb = take_fill(proj_blocks, blk_idx, torch.inf).reshape(Qn, M * B, K)
+    vb = take_fill(vec_blocks, blk_idx, 0.0).reshape(Qn, M * B, -1)
+    ib = take_fill(ids_blocks, blk_idx, n).reshape(Qn, M * B)
+    return candidate_verify_ref(pb, vb, ib, g, q, w, n=n, k=k)

@@ -20,11 +20,26 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import DBLSHParams, brute_force, build, collision_prob, merge_dedup_topk
-from repro.core import search_batch_fixed
-from repro.core.serve_search import _select_blocks
+from repro.core import (
+    Termination,
+    probe_radius,
+    rc_nn,
+    search_batch,
+    search_batch_fixed,
+    search_batch_fixed_dispatch,
+    search_batch_fixed_ref,
+)
+from repro.core.query import _dedup_merge
+from repro.core.serve_search import _merge_dedup_topk_lexsort, _select_blocks
 from repro.data import make_clustered, normalize_scale
-from repro.kernels import fused_cand_search, fused_window_search
-from repro.kernels.ref import candidate_dist_ref, fused_search_ref, window_dist_ref
+from repro.kernels import candidate_verify, fused_cand_search, fused_window_search, window_verify
+from repro.kernels.ref import (
+    candidate_dist_ref,
+    candidate_verify_ref,
+    fused_search_ref,
+    window_dist_ref,
+    window_verify_ref,
+)
 from repro.kernels.window_verify import merge_topk
 
 __all__ = [
@@ -34,7 +49,20 @@ __all__ = [
     "collision_prob",
     "merge_dedup_topk",
     "merge_topk",
+    "Termination",
+    "probe_radius",
+    "rc_nn",
+    "search_batch",
     "search_batch_fixed",
+    "search_batch_fixed_dispatch",
+    "search_batch_fixed_ref",
+    "core_fixture",
+    "tune_fixture",
+    "lexsort_merge",
+    "project_one",
+    "dedup_merge",
+    "window_verify_both",
+    "candidate_verify_both",
     "index_arrays",
     "index_params",
     "onepass_fixture",
@@ -71,6 +99,31 @@ def onepass_fixture(max_blocks: int = 32):
     params = DBLSHParams.derive(
         n=2048, d=24, c=1.5, t=48, k=10, K=8, L=3,
         inline_vectors=True, max_blocks=max_blocks,
+    )
+    index = build(kb, data, params)
+    return np.array(data), np.array(queries), index
+
+
+def core_fixture():
+    """The data, queries and index of ``tests/test_core.py``'s fixture
+    (n = 4000, d = 32, K = 10, L = 4, the gather layout)."""
+    kd, kb = jax.random.split(jax.random.key(7))
+    allpts = make_clustered(kd, 4032, 32, n_clusters=16, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:4000], allpts[4000:])
+    params = DBLSHParams.derive(n=4000, d=32, c=1.5, t=64, k=10, K=10, L=4)
+    index = build(kb, data, params)
+    return np.array(data), np.array(queries), index
+
+
+def tune_fixture():
+    """The data, queries and index of ``tests/test_tune.py``'s fixture
+    (n = 2048, d = 24, K = 8, L = 3, max_blocks = 16 < nb)."""
+    kd, kb = jax.random.split(jax.random.key(31))
+    allpts = make_clustered(kd, 2096, 24, n_clusters=12, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:2048], allpts[2048:])
+    params = DBLSHParams.derive(
+        n=2048, d=24, c=1.5, t=48, k=10, K=8, L=3,
+        inline_vectors=True, max_blocks=16,
     )
     index = build(kb, data, params)
     return np.array(data), np.array(queries), index
@@ -127,3 +180,38 @@ def fused_cand(cp, cx, cn, ci, halves, g, q, *, ks, n, mode):
                                 exact=(mode == "exact"))
     oracle = fused_search_ref(d2, hw, ci.reshape(cp.shape[0], -1), halves, n, ks)
     return tuple(map(np.asarray, got)), oracle
+
+
+def project_one(index, q: np.ndarray) -> np.ndarray:
+    """The reference's projections G_i(q) of one query, as ``search``
+    computes them: (L, K)."""
+    return np.asarray(jnp.einsum("lkd,d->lk", index.proj_vecs, jnp.asarray(q)))
+
+
+def lexsort_merge(run_d, run_i, new_d, new_i, n: int, k: int):
+    """The multi-pass oracle's lexsort merge."""
+    args = [jnp.asarray(a) for a in (run_d, run_i, new_d, new_i)]
+    return tuple(map(np.asarray, _merge_dedup_topk_lexsort(*args, n, k)))
+
+
+def dedup_merge(best_d2, best_id, new_d2, new_id, n: int, k: int):
+    """``query._dedup_merge`` on each row of (Q, ·) arrays."""
+    args = [jnp.asarray(a) for a in (best_d2, best_id, new_d2, new_id)]
+    out = jax.vmap(lambda a, b, c, d: _dedup_merge(a, b, c, d, n, k))(*args)
+    return tuple(map(np.asarray, out))
+
+
+def window_verify_both(blk, proj, vec, ids, g, q, w: float, *, n: int, k: int):
+    """Reference B6 in interpret mode, and its jnp oracle."""
+    args = [jnp.asarray(a) for a in (blk, proj, vec, ids, g, q)]
+    got = window_verify(*args, w, n=n, k=k, interpret=True)
+    oracle = window_verify_ref(*args, w, n, k)
+    return tuple(map(np.asarray, got)), tuple(map(np.asarray, oracle))
+
+
+def candidate_verify_both(cp, cv, ci, g, q, w: float, *, n: int, k: int):
+    """Reference B7 in interpret mode, and its jnp oracle."""
+    args = [jnp.asarray(a) for a in (cp, cv, ci, g, q)]
+    got = candidate_verify(*args, w, n=n, k=k, interpret=True)
+    oracle = candidate_verify_ref(*args, w, n, k)
+    return tuple(map(np.asarray, got)), tuple(map(np.asarray, oracle))

@@ -10,7 +10,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
-from repro_torch.core import DBLSHParams, brute_force, build, search_batch_fixed  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    DBLSHParams,
+    brute_force,
+    build,
+    search_batch_fixed,
+    search_batch_fixed_dispatch,
+    search_batch_fixed_ref,
+)
 from repro_torch.data import make_clustered  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 
@@ -23,7 +30,8 @@ sys.modules["jaxlib"] = None
 sys.modules["repro"] = None
 import torch
 import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels
-from repro_torch.core import DBLSHParams, brute_force, build, search_batch_fixed
+from repro_torch.core import (DBLSHParams, Termination, brute_force, build, search_batch,
+                              search_batch_fixed, search_batch_fixed_ref)
 from repro_torch.data import make_clustered, normalize_scale
 from repro_torch.kernels import launches
 gen = torch.Generator().manual_seed(0)
@@ -37,7 +45,14 @@ for engine in ("torch", "kernel", "inline"):
     d, i = search_batch_fixed(index, queries, k=5, r0=0.5, steps=4,
                               engine=engine, device="cpu")
     assert d.shape == (48, 5) and torch.isfinite(d[:, 0]).all()
-assert launches == {"fused_window_search": 0, "fused_cand_search": 0}, launches
+    d, i = search_batch_fixed_ref(index, queries, k=5, r0=0.5, steps=4,
+                                  engine=engine, device="cpu")
+    assert d.shape == (48, 5) and torch.isfinite(d[:, 0]).all()
+    search_batch_fixed(index, queries, k=5, r0=0.5, steps=4, engine=engine,
+                       termination=Termination(), with_explain=True, device="cpu")
+d, i = search_batch(index, queries, k=5, r0=0.5)
+assert d.shape == (48, 5) and torch.isfinite(d[:, 0]).all()
+assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
 print("ISOLATED-OK")
@@ -82,6 +97,8 @@ def test_entry_points_need_a_device_without_cuda():
         lambda: build(data, params, generator=gen),
         lambda: brute_force(data, data[:2], k=2),
         lambda: search_batch_fixed(index, data[:2], k=2),
+        lambda: search_batch_fixed_ref(index, data[:2], k=2),
+        lambda: search_batch_fixed_dispatch(index, data[:2], k=2),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -97,4 +114,7 @@ def test_cpu_tensors_never_launch_kernels():
     reset_launches()
     for engine in ("kernel", "inline"):
         search_batch_fixed(index, data[:5], k=4, engine=engine, device="cpu")
-    assert launches == {"fused_window_search": 0, "fused_cand_search": 0}
+        search_batch_fixed_ref(index, data[:5], k=4, engine=engine, device="cpu")
+    assert set(launches) == {"fused_window_search", "fused_cand_search",
+                             "window_verify", "candidate_verify"}
+    assert not any(launches.values()), launches

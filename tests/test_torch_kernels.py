@@ -1,6 +1,8 @@
-"""The fused search kernels: twins vs the reference's Pallas kernels
-(interpret mode) and ``fused_search_ref``, the merge primitives vs the
-reference, and — on a CUDA device only — each kernel vs its twin.
+"""The search kernels: the fused one-pass kernels' twins vs the
+reference's Pallas kernels (interpret mode) and ``fused_search_ref``, the
+per-radius verify kernels' twins vs the reference's Pallas kernels and
+jnp oracles, the merge primitives vs the reference, and — on a CUDA
+device only — each kernel vs its twin.
 
 Inputs are made with numpy and handed to both packages.  The reference
 side comes in through the ``R`` fixture, so that the CUDA cases also run
@@ -13,7 +15,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import merge_dedup_topk  # noqa: E402
-from repro_torch.kernels import fused_cand_search, fused_window_search, launches  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    candidate_verify,
+    fused_cand_search,
+    fused_window_search,
+    launches,
+    window_verify,
+)
 from repro_torch.kernels import ref as twin  # noqa: E402
 
 IMAX = np.iinfo(np.int32).max
@@ -226,6 +234,133 @@ def test_wrappers_reject_unported_modes_and_mixed_devices():
         fused_window_search(*bad, M=4, ks=5, n=n)
 
 
+def _mk_verify_cand(seed, Q, C, K, d, n):
+    """test_kernels.py::_mk_candidates from numpy: ids in [0, n], so some
+    slots carry the invalid id n."""
+    rng = np.random.default_rng(seed)
+    cp = (rng.standard_normal((Q, C, K)) * 2.0).astype(np.float32)
+    cv = rng.standard_normal((Q, C, d)).astype(np.float32)
+    ci = rng.integers(0, n + 1, (Q, C)).astype(np.int32)
+    g = rng.standard_normal((Q, K)).astype(np.float32)
+    q = rng.standard_normal((Q, d)).astype(np.float32)
+    return cp, cv, ci, g, q
+
+
+def _mk_verify_window(seed, Q, M, nb, B, K, d):
+    """test_kernels.py::test_window_verify_matches_ref's inputs from numpy:
+    each id at most once in the table, ids >= n padding, block ids
+    including the invalid sentinel nb."""
+    rng = np.random.default_rng(seed)
+    n = nb * B - 3
+    proj = (rng.standard_normal((nb, B, K)) * 2.0).astype(np.float32)
+    vec = rng.standard_normal((nb, B, d)).astype(np.float32)
+    ids = rng.permutation(nb * B).reshape(nb, B).astype(np.int32)
+    blk = rng.integers(0, nb + 1, (Q, M)).astype(np.int32)
+    g = rng.standard_normal((Q, K)).astype(np.float32)
+    q = rng.standard_normal((Q, d)).astype(np.float32)
+    return (blk, proj, vec, ids, g, q), n
+
+
+def _assert_topk_equal(got, ref):
+    """test_kernels.py::_assert_topk_equal: distances allclose (the twin
+    sums d in torch's order, the kernels in their own), ids as sets per
+    query over the finite entries, unfilled ids ``n``-or-IMAX-free."""
+    gd, gi = (np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x) for x in got)
+    rd, ri = map(np.asarray, ref)
+    np.testing.assert_allclose(gd, rd, rtol=1e-5, atol=1e-5)
+    for qq in range(gd.shape[0]):
+        finite = np.isfinite(rd[qq])
+        assert set(gi[qq][finite]) == set(ri[qq][finite]), qq
+        assert (gi[qq][~finite] != IMAX).all()
+
+
+VERIFY_CAND_SHAPES = [  # (Q, C, K, d, k), test_kernels.py:55-60
+    (1, 64, 4, 16, 5),
+    (3, 256, 12, 128, 50),
+    (2, 100, 8, 33, 10),  # non-multiple C and odd d
+    (4, 32, 2, 8, 32),  # k == C
+]
+VERIFY_WINDOW_SHAPES = [  # (Q, M, nb, B, K, d, k), test_kernels.py:95-98
+    (2, 4, 16, 32, 4, 16, 5),
+    (1, 8, 8, 64, 12, 96, 20),  # M == nb
+]
+
+
+@pytest.mark.parametrize("shape", VERIFY_CAND_SHAPES)
+def test_candidate_verify_twin_matches_reference(R, shape):
+    Q, C, K, d, k = shape
+    n = 1000
+    args = _mk_verify_cand(Q * C + d, Q, C, K, d, n)
+    pallas, oracle = R.candidate_verify_both(*args, 2.5, n=n, k=k)
+    got = candidate_verify(*_t(args), 2.5, n=n, k=k)
+    assert got[1].dtype == torch.int32 and tuple(got[0].shape) == (Q, k)
+    _assert_topk_equal(got, pallas)
+    _assert_topk_equal(got, oracle)
+    np.testing.assert_array_equal(got[1].numpy()[~np.isfinite(pallas[0])], n)
+
+
+def _verify_dedup_args():
+    """test_kernels.py::test_candidate_verify_dedup: one candidate
+    repeated 8x, all in the window."""
+    Q, C, K, d, n = 1, 64, 4, 16, 100
+    cp, cv, ci, g, q = _mk_verify_cand(0, Q, C, K, d, n)
+    ci[ci == 7] = 8
+    cp[:, :8, :] = g[:, None, :]
+    cv[:, :8, :] = 0.5
+    ci[:, :8] = 7
+    return (cp, cv, ci, g, q), n
+
+
+def test_candidate_verify_twin_dedup(R):
+    """k == C: every distinct candidate is kept, the repeated one once."""
+    args, n = _verify_dedup_args()
+    got_d, got_i = (x.numpy() for x in candidate_verify(*_t(args), 100.0, n=n, k=64))
+    assert (got_i[0][np.isfinite(got_d[0])] == 7).sum() == 1
+    pallas, _ = R.candidate_verify_both(*args, 100.0, n=n, k=64)
+    _assert_topk_equal((got_d, got_i), pallas)
+
+
+def _verify_all_masked_args():
+    """test_kernels.py::test_candidate_verify_all_masked: every box far
+    from g, w = 0.5."""
+    Q, C, K, d, n = 2, 64, 4, 16, 50
+    cp, cv, ci, g, q = _mk_verify_cand(1, Q, C, K, d, n)
+    return (cp + np.float32(100.0), cv, ci, g, q), n
+
+
+def test_candidate_verify_twin_all_masked():
+    args, n = _verify_all_masked_args()
+    got_d, got_i = candidate_verify(*_t(args), 0.5, n=n, k=5)
+    assert torch.isinf(got_d).all() and (got_i == n).all()
+
+
+@pytest.mark.parametrize("shape", VERIFY_WINDOW_SHAPES)
+def test_window_verify_twin_matches_reference(R, shape):
+    Q, M, nb, B, K, d, k = shape
+    args, n = _mk_verify_window(Q + M + nb, Q, M, nb, B, K, d)
+    pallas, oracle = R.window_verify_both(*args, 3.0, n=n, k=k)
+    got = window_verify(*_t(args), 3.0, n=n, k=k)
+    _assert_topk_equal(got, pallas)
+    _assert_topk_equal(got, oracle)
+    np.testing.assert_array_equal(got[1].numpy()[~np.isfinite(pallas[0])], n)
+
+
+def test_window_verify_invalid_block_ids():
+    """Block ids outside [0, nb) — the sentinel nb, larger ids, negative
+    ids — contribute nothing: the result equals that of the valid ids
+    alone."""
+    (blk, proj, vec, ids, g, q), n = _mk_verify_window(3, 2, 6, 8, 16, 4, 8)
+    blk[:, :3] = np.arange(3)
+    bad = blk.copy()
+    bad[:, 3:] = [8, -1, 1 << 20]
+    only = blk.copy()
+    only[:, 3:] = 8
+    got = window_verify(*_t((bad, proj, vec, ids, g, q)), 1e6, n=n, k=60)
+    want = window_verify(*_t((only, proj, vec, ids, g, q)), 1e6, n=n, k=60)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (torch.isfinite(got[0]).sum(dim=1) == int((ids[:3] < n).sum())).all()
+
+
 # ---------------------------------------------------- on a CUDA device only
 
 @pytest.mark.cuda
@@ -269,3 +404,50 @@ def test_kernel_rejects_oversized_pool(cuda):
     args, n = _mk_cand(1, 1, 4, 8000, 4, 8, 2)
     with pytest.raises(ValueError, match="shared memory"):
         fused_cand_search(*_t(args, cuda), ks=5, n=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VERIFY_CAND_SHAPES)
+def test_candidate_verify_kernel_matches_twin(cuda, shape):
+    Q, C, K, d, k = shape
+    n = 1000
+    args = _mk_verify_cand(Q * C + d, Q, C, K, d, n)
+    for w in (2.5, 1e6):
+        before = launches["candidate_verify"]
+        got = candidate_verify(*_t(args, cuda), w, n=n, k=k)
+        torch.cuda.synchronize()
+        assert launches["candidate_verify"] == before + 1
+        _assert_topk_equal(got, candidate_verify(*_t(args), w, n=n, k=k))
+
+
+@pytest.mark.cuda
+def test_candidate_verify_kernel_dedup_and_all_masked(cuda):
+    args, n = _verify_dedup_args()
+    got = candidate_verify(*_t(args, cuda), 100.0, n=n, k=64)
+    _assert_topk_equal(got, candidate_verify(*_t(args), 100.0, n=n, k=64))
+    assert int((got[1][0][torch.isfinite(got[0][0])] == 7).sum()) == 1
+    args, n = _verify_all_masked_args()
+    got_d, got_i = candidate_verify(*_t(args, cuda), 0.5, n=n, k=5)
+    assert torch.isinf(got_d).all() and (got_i == n).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VERIFY_WINDOW_SHAPES)
+def test_window_verify_kernel_matches_twin(cuda, shape):
+    Q, M, nb, B, K, d, k = shape
+    args, n = _mk_verify_window(Q + M + nb, Q, M, nb, B, K, d)
+    args[0][0, -1] = -1  # invalid ids besides the sentinel nb
+    args[0][-1, 0] = 1 << 20
+    for w in (3.0, 1e6):
+        before = launches["window_verify"]
+        got = window_verify(*_t(args, cuda), w, n=n, k=k)
+        torch.cuda.synchronize()
+        assert launches["window_verify"] == before + 1
+        _assert_topk_equal(got, window_verify(*_t(args), w, n=n, k=k))
+
+
+@pytest.mark.cuda
+def test_verify_kernels_reject_oversized_pool(cuda):
+    args = _mk_verify_cand(1, 1, 30000, 4, 8, 100)
+    with pytest.raises(ValueError, match="shared memory"):
+        candidate_verify(*_t(args, cuda), 1.0, n=100, k=5)

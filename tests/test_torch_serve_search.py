@@ -12,7 +12,12 @@ import pytest
 torch = pytest.importorskip("torch")
 R = pytest.importorskip("_torch_parity")
 
-from repro_torch.core import ENGINES, from_arrays, search_batch_fixed  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ENGINES,
+    from_arrays,
+    search_batch_fixed,
+    search_batch_fixed_ref,
+)
 from repro_torch.core.serve_search import _select_blocks  # noqa: E402
 
 K_TEST = 8
@@ -151,10 +156,20 @@ def test_select_blocks_zero_tie_order():
 
 
 def test_unported_options_raise(setup):
-    _, queries, _, index = setup
-    for kw, match in (({"termination": object()}, "A7"), ({"with_explain": True}, "A7"),
-                      ({"dtype": "int8"}, "A14")):
-        with pytest.raises(NotImplementedError, match=match):
-            search_batch_fixed(index, queries, device="cpu", **kw)
+    """The quantized dtypes are still unported; the multi-pass oracle
+    takes only the port's engines, and 'inline' only on an index with
+    inline vectors."""
+    _, queries, ref, index = setup
+    with pytest.raises(NotImplementedError, match="A14"):
+        search_batch_fixed(index, queries, device="cpu", dtype="int8")
     with pytest.raises(ValueError, match="engine"):
         search_batch_fixed(index, queries, engine="jnp", device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        search_batch_fixed_ref(index, queries, engine="jnp", device="cpu")
+    params = R.index_params(ref)
+    params["inline_vectors"] = False
+    arrays = R.index_arrays(ref)
+    arrays["vec_blocks"] = np.zeros((0,), np.float32)
+    gather = from_arrays(arrays, params, device="cpu")
+    with pytest.raises(ValueError, match="inline_vectors"):
+        search_batch_fixed_ref(gather, queries, engine="inline", device="cpu")

@@ -11,7 +11,10 @@ Phases, each printing a line (with its seconds) when it passes:
 2. twins       — holds each kernel against its plain PyTorch twin on the
                  same CUDA tensors: B1/B2 at the shapes of
                  tests/test_kernels.py (invalid block ids, steps 1/4/8,
-                 modes norm/exact, ragged Ct) and at ks = 50; B6/B7 at
+                 modes norm/exact, ragged Ct) and at ks = 50; B3 (B1/B2 in
+                 the modes bf16 and int8) at tests/test_kernels.py:280-357's
+                 shapes, ragged Ct and ks = 40 (int8: bins equal, and
+                 whether bit-equal; bf16: bin ids >= 98 % equal); B6/B7 at
                  C in {64, 256, 100, 32} (odd d, k == C), the dedup and
                  all-masked cases, invalid block ids and M == nb;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
@@ -41,15 +44,39 @@ Phases, each printing a line (with its seconds) when it passes:
                  steps and fetches no more candidates; explain's step slots
                  sum to the candidates; the dispatch handle's result is
                  bit-equal to the synchronous call;
-7. times       — median CUDA-event times of each kernel and its twin at the
-                 shapes its path gives it, beside the least time the card
-                 could take; median wall times of the one-pass search, the
-                 multi-pass search and the one-pass search under
-                 Termination(), per engine, at 64 and 1024 queries;
-8. profile     — one one-pass and one multi-pass search per engine and
-                 batch under torch.profiler: device busy time against the
-                 wall time, device ops, device time per one-pass stage
-                 (project, select, verify, merge) and the top device ops.
+7. quant       — the main index quantized in place (quantize_blocks: the
+                 same blocks and hash functions) to bf16 and int8; 64 and
+                 1024 queries on every engine and dtype: B1/B2 launched in
+                 the quantized modes only (counts per mode), recall@10 >=
+                 the fp32 recall - 0.02, id overlap with fp32, the re-rank
+                 contract against a float64 diff-form oracle, stats equal
+                 to fp32 where the ids are; Termination() stats against
+                 fp32; each B3 instantiation against its twin on the
+                 path's own inputs;
+8. updates     — on the int8 index: insert 10,000 new points (each ~0.5
+                 from a random existing one), delete
+                 10,000 ids (each query's true nearest neighbour among
+                 them), then fp32
+                 and int8 searches on every engine (no deleted id returned,
+                 recall@10 over the live points >= 0.5, inserted points
+                 found at d ~ 0 with exact=True); on the fp32 index,
+                 the queries' true 10-NN deleted: the second-tier targets
+                 found as often as the original index finds them (top 30,
+                 filtered); compact on a 100k-point
+                 int8 index after the same kind of updates (at n = 1M the
+                 re-derived K = 3572 would need ~29 GB of projections) and
+                 search it; wall times of insert, delete and compact;
+9. times       — median CUDA-event times of each kernel (B3 per mode) and
+                 its twin at the shapes its path gives it, beside the least
+                 time the card could take; median wall times of the
+                 one-pass search, the multi-pass search, the one-pass
+                 search under Termination() and the quantized searches,
+                 per engine, at 64 and 1024 queries;
+10. profile    — one one-pass, multi-pass, bf16 and int8 search per engine
+                 and batch under torch.profiler: device busy time against
+                 the wall time, device ops, device time per one-pass stage
+                 (project, select, verify, merge), our kernels' device time
+                 per launch (B3 per mode) and the top device ops.
 
 Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
@@ -58,7 +85,9 @@ JSON record, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -71,8 +100,12 @@ SRC = ROOT / "src"
 SEED = 7
 N, D, N_QUERIES, N_QUERIES_LARGE = 1_000_000, 64, 64, 1024
 K_NN, STEPS, R0 = 10, 8, 0.5
+N_INSERT, N_DELETE = 10_000, 10_000  # the updates phase (10,000 is not a multiple of B)
+N_COMPACT = 100_000  # compact runs on an index of this many points (see phase 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # H100 SXM dense tensor-core rates
+QUANT = ("bf16", "int8")
 KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "fused_window_search": ("src/repro_torch/kernels/csrc/fused_search.cu",
                             "src/repro/kernels/window_verify.py:328"),
@@ -85,6 +118,9 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
 }
 FUSED = ("fused_window_search", "fused_cand_search")
 VERIFY = ("window_verify", "candidate_verify")
+# kernel B3: the quantized modes of B1/B2, one record per instantiation
+B3 = {f"{w}[{m}]": (w, m) for w in FUSED for m in QUANT}
+B3_REPLACES = "src/repro/kernels/window_verify.py:270"  # _slot_d2, modes bf16/int8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -225,12 +261,61 @@ def verify_window_case(torch, gen, Q, M, nb, B, K, d, dev):
     return (blk, proj, vec, ids, g, q), n
 
 
+def quantized_case(torch, args, x_idx: int, mode: str):
+    """A kernel case's float32 vectors args[x_idx] quantized per slot (the
+    port's quantize_blocks, the reference's rule): the args with the
+    quantized vectors, and the slots' dequant scales."""
+    from repro_torch.core import quantize_blocks
+
+    x = args[x_idx]
+    flat = x.reshape(-1, x.shape[-1])
+    qx, qs = quantize_blocks(flat, torch.arange(flat.shape[0], dtype=torch.int32,
+                                                device=x.device), mode)
+    out = list(args)
+    out[x_idx] = qx.reshape(x.shape)
+    return tuple(out), qs.reshape(x.shape[:-1])
+
+
+def quant_err(torch, got, want, mode: str, atol: float, rtol: float = 1e-5):
+    """Kernel B3 against its twin.  int8: counts, ids and distances as
+    ``bins_err`` (the integer dot is exact and the dequant steps are the
+    twin's, so they should also be bit-equal); bf16: counts equal, per-bin
+    id overlap >= 0.98 (the two sum the bf16 products in other orders, so
+    near-ties at the ks cut may swap), distances of the shared ids within
+    tolerance.  Returns (largest |err|, whether every output is bit-equal)."""
+    bits = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+    if mode == "int8":
+        return bins_err(torch, got, want, atol=atol, rtol=rtol), bits
+    gd, gi, gc = (x.cpu() for x in got)
+    wd, wi, wc = (x.cpu() for x in want)
+    check(torch.equal(gc, wc), "bf16: bin counts differ from the twin")
+    hits = total = 0
+    err = 0.0
+    for q in range(gd.shape[0]):
+        for j in range(gd.shape[1]):
+            wf, gf = torch.isfinite(wd[q, j]), torch.isfinite(gd[q, j])
+            wmap = dict(zip(wi[q, j][wf].tolist(), wd[q, j][wf].tolist()))
+            gmap = dict(zip(gi[q, j][gf].tolist(), gd[q, j][gf].tolist()))
+            shared = wmap.keys() & gmap.keys()
+            hits += len(shared)
+            total += len(wmap)
+            for i in shared:
+                e = abs(gmap[i] - wmap[i])
+                err = max(err, e)
+                check(e <= atol + rtol * abs(wmap[i]),
+                      f"bf16: distance of id {i} differs from the twin by {e} (atol {atol})")
+    check(total == 0 or hits / total >= 0.98, f"bf16: bin id overlap {hits / total} < 0.98")
+    return err, bits
+
+
 def work(torch, name: str, a: tuple, k: dict):
-    """(input bytes, output bytes, float32 operations) one call needs on
-    these inputs: each input read once — for B1 and B6 only the rows of
-    the distinct valid blocks they select — and each output written once.
-    Operations per slot: 3K for hw, 2d for the norm-form dot (B1/B2, plus
-    ``steps`` compares) or 3d for the diff form (B6/B7)."""
+    """(input bytes, output bytes, operations, least ms for those
+    operations) one call needs on these inputs: each input read once — for
+    B1 and B6 only the rows of the distinct valid blocks they select — and
+    each output written once.  Operations per slot: 3K for hw, 2d for the
+    norm-form dot (B1/B2, plus ``steps`` compares) or 3d for the diff form
+    (B6/B7), in float32; in the quantized modes (B3) the 2d of the dot at
+    the card's peak rate for bf16 or int8 and the rest in float32."""
     if name in VERIFY:
         g, q = a[-3], a[-2]  # the last argument is the window width
         Qn, K, d = q.shape[0], g.shape[-1], q.shape[-1]
@@ -246,8 +331,12 @@ def work(torch, name: str, a: tuple, k: dict):
         else:
             in_bytes = sum(t.numel() * 4 for t in a[:3]) + small
             slots = a[0].numel() // K
-        return in_bytes, out_bytes, slots * (3 * K + 3 * d)
+        ops = slots * (3 * K + 3 * d)
+        return in_bytes, out_bytes, ops, ops / FP32_FLOPS * 1e3
     window = name == "fused_window_search"
+    mode = k.get("mode", "norm")
+    xbytes = {"bf16": 2, "int8": 1}.get(mode, 4)
+    scale = 4 if mode in QUANT else 0  # the slot's dequant scale
     halves, g, q = (a[1], a[6], a[7]) if window else (a[4], a[5], a[6])
     Qn, K, d, steps = q.shape[0], g.shape[-1], q.shape[-1], halves.shape[0]
     small = (halves.numel() + g.numel() + q.numel()) * 4
@@ -257,12 +346,17 @@ def work(torch, name: str, a: tuple, k: dict):
         lnb, B = proj.shape[0], proj.shape[1]
         valid = blk[(blk >= 0) & (blk < lnb)]
         rows = int(torch.unique(valid).numel()) * B
-        in_bytes = blk.numel() * 4 + rows * (K + d + 2) * 4 + small
+        in_bytes = blk.numel() * 4 + rows * ((K + 2) * 4 + d * xbytes + scale) + small
         slots = int(valid.numel()) * B
     else:
-        in_bytes = sum(t.numel() * 4 for t in a[:4]) + small
         slots = a[0].numel() // K
-    return in_bytes, out_bytes, slots * (3 * K + 2 * d + steps)
+        in_bytes = slots * ((K + 2) * 4 + d * xbytes + scale) + small
+    if mode in QUANT:
+        f32_ops, q_ops = slots * (3 * K + steps), slots * 2 * d
+        return (in_bytes, out_bytes, f32_ops + q_ops,
+                (f32_ops / FP32_FLOPS + q_ops / PEAK_OPS[mode]) * 1e3)
+    ops = slots * (3 * K + 2 * d + steps)
+    return in_bytes, out_bytes, ops, ops / FP32_FLOPS * 1e3
 
 
 def capture_calls(kernels, wrappers, name, fn):
@@ -340,6 +434,11 @@ def main() -> int:
         Termination,
         brute_force,
         build,
+        compact,
+        delete,
+        insert,
+        live_count,
+        quantize_blocks,
         search_batch_fixed,
         search_batch_fixed_dispatch,
         search_batch_fixed_ref,
@@ -350,9 +449,10 @@ def main() -> int:
     dev = torch.device("cuda")
     wrappers = {name: getattr(kernels, name) for name in KERNELS}
     twins = {name: getattr(ref, f"{name}_ref") for name in KERNELS}
-    max_err = {name: 0.0 for name in KERNELS}
+    max_err = {name: 0.0 for name in (*KERNELS, *B3)}
+    b3_bits = {name: True for name in B3}  # int8: every output bit-equal to the twin so far
     engines = ("torch", "kernel", "inline")
-    t_phase = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
 
     def phase_s() -> float:
         nonlocal t_phase
@@ -400,6 +500,36 @@ def main() -> int:
                 max_err["fused_cand_search"] = max(max_err["fused_cand_search"], err)
                 n_cases += 1
 
+    # B3: the quantized modes at tests/test_kernels.py:280-357's shapes
+    # (invalid block ids, steps 6), ragged Ct, and the shortlist ks = 40; on
+    # a generator of their own, so that the main path's data stays the same
+    b3_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for mode in QUANT:
+        for Q, L, M, nb, B, K, d, ks in ((2, 2, 4, 8, 32, 4, 16, 8), (2, 2, 4, 8, 32, 4, 24, 40),
+                                         (8, 3, 8, 8, 64, 12, 24, 40)):
+            args, n = window_case(torch, b3_gen, Q, L, M, nb, B, K, d, 6, dev)
+            qargs, qs = quantized_case(torch, args, 3, mode)
+            kk = dict(M=M, ks=ks, n=n, mode=mode, x_scale=qs)
+            got = kernels.fused_window_search(*qargs, **kk)
+            torch.cuda.synchronize()
+            err, bits = quant_err(torch, got, ref.fused_window_search_ref(*qargs, **kk), mode,
+                                  atol=1e-5)
+            name = f"fused_window_search[{mode}]"
+            max_err[name], b3_bits[name] = max(max_err[name], err), b3_bits[name] and bits
+            n_cases += 1
+        for Q, L, Ct, K, d, ks in ((2, 3, 64, 4, 16, 20), (1, 2, 300, 12, 96, 40),
+                                   (4, 3, 320, 10, 24, 40)):
+            args, n = cand_case(torch, b3_gen, Q, L, Ct, K, d, 6, dev)
+            qargs, qs = quantized_case(torch, args, 1, mode)
+            kk = dict(ks=ks, n=n, mode=mode, cand_scale=qs)
+            got = kernels.fused_cand_search(*qargs, **kk)
+            torch.cuda.synchronize()
+            err, bits = quant_err(torch, got, ref.fused_cand_search_ref(*qargs, **kk), mode,
+                                  atol=1e-5)
+            name = f"fused_cand_search[{mode}]"
+            max_err[name], b3_bits[name] = max(max_err[name], err), b3_bits[name] and bits
+            n_cases += 1
+
     def verify_vs_twin(name, args, w, n, k):
         got = wrappers[name](*args, w, n=n, k=k)
         torch.cuda.synchronize()
@@ -434,8 +564,9 @@ def main() -> int:
             verify_vs_twin("window_verify", args, w, n, k)
             n_cases += 1
     print(f"[twins] ok: {n_cases} kernel-vs-twin cases agree (counts equal, "
-          f"rtol = atol = 1e-5, id sets per bin / per query); max |err| {max_err} "
-          f"({phase_s():.1f} s)", flush=True)
+          f"rtol = atol = 1e-5, id sets per bin / per query; B3 bf16: bin id overlap "
+          f">= 0.98); max |err| {max_err}; B3 outputs bit-equal to the twin: "
+          f"{json.dumps({k_: v for k_, v in b3_bits.items()})} ({phase_s():.1f} s)", flush=True)
 
     # -------------------------------------------------------- 3. main path
     t0 = time.perf_counter()
@@ -651,17 +782,251 @@ def main() -> int:
           f"included; Termination() <= fixed; explain slots sum to candidates; dispatch "
           f"bit-equal. {json.dumps(term_summary)} ({phase_s():.1f} s)", flush=True)
 
-    # ------------------------------------------------------------ 7. times
+    # ---------------------------------------- 7. quant: kernel B3 on the path
+    # the main index quantized in place: the same blocks and hash functions
+    t0 = time.perf_counter()
+    quant_index = {}
+    for dt in QUANT:
+        qb, qsc = quantize_blocks(data, index.ids_blocks, dt)
+        quant_index[dt] = dataclasses.replace(
+            index, params=dataclasses.replace(params, quant_dtype=dt), qvec_blocks=qb,
+            qvec_scale=qsc)
+    torch.cuda.synchronize()
+    sizes = {dt: (quant_index[dt].memory_bytes() - index.memory_bytes()) / 1e9 for dt in QUANT}
+    print(f"[quant] quantized blocks: {json.dumps(sizes)} GB on the card, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    _, gt1k = brute_force(data, Q1k, k=K_NN, device=dev)
+    batches = {N_QUERIES: (Q64, gt_sets),
+               N_QUERIES_LARGE: (Q1k, [set(r) for r in gt1k.cpu().tolist()])}
+    fp32 = {(N_QUERIES, e): results[e, False] for e in engines}
+    fp32.update({(N_QUERIES_LARGE, e): search_batch_fixed(index, Q1k, engine=e, **kw)
+                 for e in engines})
+
+    kernels.reset_launches()
+    quant_results, quant_per_run = {}, {}
+    for Qn, (Qb, _) in batches.items():
+        for e in engines:
+            for dt in QUANT:
+                before = {w: dict(kernels.mode_launches[w]) for w in FUSED}
+                quant_results[Qn, e, dt] = search_batch_fixed(quant_index[dt], Qb, engine=e,
+                                                              dtype=dt, **kw)
+                quant_per_run[f"{e}:{dt}@{Qn}"] = {
+                    f"{w}[{m}]": kernels.mode_launches[w][m] - before[w][m]
+                    for w in FUSED for m in kernels.mode_launches[w]
+                    if kernels.mode_launches[w][m] != before[w][m]}
+    torch.cuda.synchronize()
+    quant_launches = {name: kernels.mode_launches[w][m] for name, (w, m) in B3.items()}
+    for name, count in quant_launches.items():
+        check(count > 0, f"the quantized path never launched {name}")
+    check(not any(kernels.mode_launches[w][m] for w in FUSED for m in ("norm", "exact")),
+          "the quantized path launched a float32 mode")
+    print(f"[quant] launches per search (Q=64 and 1024, each engine and dtype): "
+          f"{json.dumps(quant_per_run)}", flush=True)
+
+    quant_summary = {}
+    for (Qn, e, dt), (dd, ii, st) in quant_results.items():
+        Qb, gts = batches[Qn]
+        fd, fi, fst = fp32[Qn, e]
+        check(tuple(dd.shape) == (Qn, K_NN) and bool(torch.isfinite(dd[:, 0]).all()),
+              f"quant {e} {dt}@{Qn}: shape or an empty result")
+        sets, fsets = idsets(torch, dd, ii), idsets(torch, fd, fi)
+        recall = sum(len(a & b) for a, b in zip(sets, gts)) / (Qn * K_NN)
+        f_recall = sum(len(a & b) for a, b in zip(fsets, gts)) / (Qn * K_NN)
+        overlap = sum(len(a & b) for a, b in zip(sets, fsets)) / (Qn * K_NN)
+        check(recall >= f_recall - 0.02,
+              f"quant {e} {dt}@{Qn}: recall@{K_NN} {recall} < fp32 {f_recall} - 0.02")
+        # the re-rank contract: each returned distance is its id's float32
+        # distance, against a float64 diff-form oracle (norm-scaled atol)
+        fin = torch.isfinite(dd)
+        x = data[ii.clamp(0, N - 1).long()].double()
+        true2 = ((x - Qb[:, None, :].double()) ** 2).sum(-1)
+        scale2 = (x * x).sum(-1) + (Qb.double() ** 2).sum(-1, keepdim=True)
+        rerr = (dd.double() ** 2 - true2).abs()
+        check(bool((rerr[fin] <= 1e-5 * true2[fin] + 4e-6 * scale2[fin]).all()),
+              f"quant {e} {dt}@{Qn}: a returned distance is off its id's float32 distance "
+              f"by {float(rerr[fin].max())}")
+        # stats: where the quantized top-k is the float32 one, the schedule
+        # ran the same steps (C2 reads re-ranked float32 distances)
+        same = torch.tensor([a == b for a, b in zip(sets, fsets)], device=dev)
+        for key in st:
+            check(torch.equal(st[key][same], fst[key][same]),
+                  f"quant {e} {dt}@{Qn}: {key} differs from fp32 where the ids agree")
+        quant_summary[f"{e}:{dt}@{Qn}"] = {
+            "recall": recall, "fp32_recall": f_recall, "overlap_with_fp32": overlap,
+            "queries_with_fp32_ids": int(same.sum()),
+            "stats_equal_all": all(torch.equal(st[key], fst[key]) for key in st)}
+    print(f"[quant] recall@{K_NN} vs brute force, id overlap with fp32, stats: "
+          f"{json.dumps(quant_summary)}", flush=True)
+
+    # Termination(): C1 counts float32 admissions and C2 reads float32 distances
+    term_equal = {}
+    for e in engines:
+        ekw = dict(kw, engine=e, with_explain=True, termination=Termination())
+        fd, fi, fst, fex = search_batch_fixed(index, Q64, **ekw)
+        for dt in QUANT:
+            qd, qi, qst, qex = search_batch_fixed(quant_index[dt], Q64, dtype=dt, **ekw)
+            eq = ((fst["radius_steps"] == qst["radius_steps"])
+                  & (fex["term_cause"] == qex["term_cause"]))
+            same = torch.tensor([a == b for a, b in zip(idsets(torch, qd, qi),
+                                                        idsets(torch, fd, fi))], device=dev)
+            check(bool(eq[same].all()), f"quant {e} {dt}: Termination() stats differ from "
+                  f"fp32 on a query whose ids equal fp32's")
+            term_equal[f"{e}:{dt}"] = [int(eq.sum()), int(same.sum())]
+    print(f"[quant] Termination(): [queries whose radius_steps and term_cause equal fp32's, "
+          f"queries whose ids equal fp32's] of {N_QUERIES}: {json.dumps(term_equal)}",
+          flush=True)
+
+    # each B3 launch against its twin on the path's own inputs
+    captured_b3 = {}
+    for name, (w, m) in B3.items():
+        engine = "inline" if w == "fused_window_search" else "kernel"
+        captured_b3[name] = capture_calls(
+            kernels, wrappers, w,
+            lambda: search_batch_fixed(quant_index[m], Q64, engine=engine, dtype=m, **kw))
+        a, k = captured_b3[name]
+        nrm, q = (a[4], a[7]) if w == "fused_window_search" else (a[2], a[6])
+        scale = float(nrm[torch.isfinite(nrm)].max()) + float((q * q).sum(-1).max())
+        err, bits = quant_err(torch, wrappers[w](*a, **k), twins[w](*a, **k), m,
+                              atol=1e-5 if m == "int8" else 4e-6 * scale)
+        max_err[name], b3_bits[name] = max(max_err[name], err), b3_bits[name] and bits
+    torch.cuda.synchronize()
+    print(f"[quant] ok: B3 agrees with its twin on the path's inputs (int8: rtol = atol = "
+          f"1e-5; bf16: ids >= 0.98, atol 4e-6 x {scale:.1f}); max |err| "
+          f"{ {n_: max_err[n_] for n_ in B3} }; bit-equal to the twin: {json.dumps(b3_bits)} "
+          f"({phase_s():.1f} s)", flush=True)
+
+    # ------------------------------------- 8. updates on the int8 index
+    # new points around existing ones (~0.5 from a random point, the median
+    # nearest-neighbour distance being 1), on a generator of their own
+    upd_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    near_of = torch.randint(0, N, (N_INSERT,), generator=upd_gen, device=dev)
+    noise = torch.randn((N_INSERT, D), generator=upd_gen, device=dev) * (0.5 / D ** 0.5)
+    extra = data[near_of] + noise
+    qidx = quant_index["int8"]
+    t0 = time.perf_counter()
+    ins_index = insert(qidx, extra)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    n_all = N + N_INSERT
+    check(ins_index.n == n_all and live_count(ins_index) == n_all, "insert: wrong point count")
+    # the victims: the true nearest neighbour of each of the 1024 queries,
+    # then random old ids
+    near = torch.unique(gt1k[:, 0])
+    rest = torch.randperm(N, generator=gen, device=dev)
+    rest = rest[~torch.isin(rest, near)][:N_DELETE - near.numel()]
+    victims = torch.cat([near, rest]).to(torch.int32)
+    t0 = time.perf_counter()
+    del_index = delete(ins_index, victims)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    check(live_count(del_index) == n_all - N_DELETE, "delete: wrong live count")
+    live = torch.ones(n_all, dtype=torch.bool, device=dev)
+    live[victims.long()] = False
+    live_ids = torch.nonzero(live)[:, 0]
+    _, gt_live = brute_force(del_index.data[live_ids], Q64, k=K_NN, device=dev)
+    gt_live = [set(r) for r in live_ids[gt_live].cpu().tolist()]
+    victim_set = set(victims.cpu().tolist())
+    upd_summary = {}
+    probes = extra[:4]
+    for e in engines:
+        for dt in ("fp32", "int8"):
+            dd, ii = search_batch_fixed(del_index, Q64, engine=e, dtype=dt, **kw)[:2]
+            sets = idsets(torch, dd, ii)
+            check(not victim_set & set().union(*sets), f"updates {e} {dt}: a deleted id returned")
+            recall = sum(len(a & b) for a, b in zip(sets, gt_live)) / (N_QUERIES * K_NN)
+            check(recall >= 0.5, f"updates {e} {dt}: recall@{K_NN} over the live points {recall}")
+            upd_summary[f"{e}:{dt}"] = recall
+        # a query placed on an inserted point returns it, at d ~ 0
+        pd_, pi_ = search_batch_fixed(del_index, probes, k=1, r0=0.25, steps=STEPS, engine=e,
+                                      exact=True, device=dev)
+        want = torch.arange(N, N + probes.shape[0], device=dev, dtype=torch.int32)
+        check(torch.equal(pi_[:, 0], want) and bool((pd_[:, 0] < 1e-3).all()),
+              f"updates {e}: an inserted point was not found at distance ~0: "
+              f"{pi_[:, 0].tolist()} {pd_[:, 0].tolist()}")
+    del ins_index, del_index
+    # delete at full scale, held against the original index: with every true
+    # 10-NN of the 64 queries deleted, the second-tier targets must be found
+    # as often as the original fp32 index finds them (its top-30, the deleted
+    # ids filtered out)
+    tier2 = torch.unique(gt.reshape(-1)).to(torch.int32)
+    tier2_set = set(tier2.cpu().tolist())
+    keep = torch.ones(N, dtype=torch.bool, device=dev)
+    keep[tier2.long()] = False
+    keep_ids = torch.nonzero(keep)[:, 0]
+    _, gt2 = brute_force(data[keep_ids], Q64, k=K_NN, device=dev)
+    gt2 = [set(r) for r in keep_ids[gt2].cpu().tolist()]
+    del2 = delete(index, tier2)
+    tier2_recall = {}
+    for e in engines:
+        wide = search_batch_fixed(index, Q64, engine=e, **dict(kw, k=3 * K_NN))[1]
+        filt = [[i for i in r if i not in tier2_set][:K_NN] for r in wide.cpu().tolist()]
+        r_filt = sum(len(set(a) & b) for a, b in zip(filt, gt2)) / (N_QUERIES * K_NN)
+        dd, ii = search_batch_fixed(del2, Q64, engine=e, **kw)[:2]
+        sets = idsets(torch, dd, ii)
+        check(not tier2_set & set().union(*sets), f"updates {e}: a deleted id returned")
+        r_del = sum(len(a & b) for a, b in zip(sets, gt2)) / (N_QUERIES * K_NN)
+        check(r_del >= r_filt - 0.02, f"updates {e}: recall {r_del} after deleting the "
+              f"true 10-NN, the original index's {r_filt} on the same targets")
+        tier2_recall[e] = [r_del, r_filt]
+    del del2
+    print(f"[updates] delete of the {tier2.numel()} true 10-NN of the {N_QUERIES} queries "
+          f"(fp32): recall@{K_NN} on the second-tier targets [after delete, original "
+          f"index filtered]: {json.dumps(tier2_recall)}", flush=True)
+    # compact re-derives K and L for the live n by the paper's formulas, as
+    # the reference does; on this workload that is K = 3572, L = 2 at
+    # n = 1M (a ~29 GB projection array), so compact runs on a 100k-point
+    # int8 index (K = 2721, L = 2 after compaction) with the same updates
+    sub_n = N_COMPACT
+    sub = build(data[:sub_n], DBLSHParams.derive(n=sub_n, d=D, c=1.5, t=64, k=K_NN, K=10,
+                                                 L=5, inline_vectors=True, quant_dtype="int8"),
+                generator=gen, device=dev)
+    sub = delete(insert(sub, extra[:N_INSERT // 10]), victims[victims < sub_n])
+    n_sub_all, sub_live = sub.n, live_count(sub)
+    t0 = time.perf_counter()
+    cidx, id_map = compact(sub, generator=gen)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    check(cidx.n == sub_live and int((id_map >= 0).sum()) == sub_live,
+          "compact: wrong point count")
+    dd, ii = search_batch_fixed(cidx, Q64, engine="inline", dtype="int8", **kw)[:2]
+    inv = torch.full((cidx.n + 1,), -1, dtype=torch.long, device=dev)
+    inv[id_map[id_map >= 0].long()] = torch.nonzero(id_map >= 0)[:, 0]
+    sets = idsets(torch, dd, inv[ii.long()])
+    sub_ids = torch.nonzero(id_map >= 0)[:, 0]
+    sub_x = torch.cat([data[:sub_n], extra[:N_INSERT // 10]])[sub_ids]
+    _, gt_sub = brute_force(sub_x, Q64, k=K_NN, device=dev)
+    gt_sub = [set(r) for r in sub_ids[gt_sub].cpu().tolist()]
+    # compact's re-derived K and L differ from the main path's, so its
+    # recall is reported, not held to the main path's gate
+    c_recall = sum(len(a & b) for a, b in zip(sets, gt_sub)) / (N_QUERIES * K_NN)
+    check(bool(torch.isfinite(dd[:, 0]).all()) and -1 not in set().union(*sets),
+          "compact: a query found nothing, or a deleted point came back")
+    check(not set(victims[victims < sub_n].tolist()) & set().union(*sets),
+          "compact: a deleted id came back")
+    print(f"[updates] ok: int8 index, insert {N_INSERT} in {insert_s:.3f} s, delete "
+          f"{N_DELETE} (the {near.numel()} distinct true 1-NN of the {N_QUERIES_LARGE} "
+          f"queries among them) in "
+          f"{delete_s:.3f} s, compact of a {n_sub_all}-point int8 index to {cidx.n} in "
+          f"{compact_s:.3f} s; no deleted id "
+          f"returned; inserted points found at d ~ 0 (exact); recall@{K_NN} over the live "
+          f"points {json.dumps(upd_summary)}, after compact (int8, inline; K={cidx.params.K} "
+          f"L={cidx.params.L} M={cidx.params.max_blocks}) {c_recall:.4f} "
+          f"({phase_s():.1f} s)", flush=True)
+    del sub, cidx
+
+    # ------------------------------------------------------------ 9. times
     records = []
     path_launches = {**{n_: onepass_launches[n_] for n_ in FUSED},
                      **{n_: multi_launches[n_] for n_ in VERIFY}}
-    for name, (source, replaces) in KERNELS.items():
-        a, k = captured[name]
-        ms = cuda_ms(torch, lambda: wrappers[name](*a, **k), iters=50)
-        plain_ms = cuda_ms(torch, lambda: twins[name](*a, **k), iters=5)
-        in_bytes, out_bytes, ops = work(torch, name, a, k)
+    path_launches.update(quant_launches)
+    timed = [(name, name, *KERNELS[name], captured[name]) for name in KERNELS]
+    timed += [(name, w, KERNELS[w][0], B3_REPLACES, captured_b3[name])
+              for name, (w, _) in B3.items()]
+    for name, wrapper, source, replaces, (a, k) in timed:
+        ms = cuda_ms(torch, lambda: wrappers[wrapper](*a, **k), iters=50)
+        plain_ms = cuda_ms(torch, lambda: twins[wrapper](*a, **k), iters=5)
+        in_bytes, out_bytes, ops, ops_ms = work(torch, wrapper, a, k)
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_FLOPS * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -671,7 +1036,7 @@ def main() -> int:
         })
         print(f"[times] {name}: median {ms:.4f} ms/launch at Q={N_QUERIES} (twin {plain_ms:.3f} "
               f"ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
-              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mflop)", flush=True)
+              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)", flush=True)
 
     # wall times: for each batch, engines in turns, each path timed alone
     wall = {}
@@ -680,6 +1045,8 @@ def main() -> int:
         "multipass": lambda Qb, e: search_batch_fixed_ref(index, Qb, engine=e, **kw),
         "terminated": lambda Qb, e: search_batch_fixed(index, Qb, engine=e,
                                                        termination=Termination(), **kw),
+        **{dt: (lambda Qb, e, dt=dt: search_batch_fixed(quant_index[dt], Qb, engine=e,
+                                                        dtype=dt, **kw)) for dt in QUANT},
     }
     for Qn, Qb in ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k)):
         for engine in engines:
@@ -695,15 +1062,20 @@ def main() -> int:
                  for e in engines}
         saved = {e: round(1 - wall[f"terminated:{e}@{Qn}"] / wall[f"onepass:{e}@{Qn}"], 3)
                  for e in engines}
+        quant = {f"{dt}:{e}": round(wall[f"{dt}:{e}@{Qn}"] / wall[f"onepass:{e}@{Qn}"], 3)
+                 for dt in QUANT for e in engines}
         print(f"[times] Q={Qn}: multi-pass / one-pass wall {json.dumps(ratio)}; "
-              f"Termination() saves {json.dumps(saved)} of the fixed schedule's wall "
-              f"({phase_s():.1f} s)", flush=True)
+              f"Termination() saves {json.dumps(saved)} of the fixed schedule's wall; "
+              f"quantized / fp32 one-pass wall {json.dumps(quant)} ({phase_s():.1f} s)",
+              flush=True)
 
-    # ------------------------------------------- 8. where the time goes
+    # ------------------------------------------ 10. where the time goes
     from torch.profiler import ProfilerActivity, profile
 
     stages = ("dblsh.project", "dblsh.select", "dblsh.verify", "dblsh.merge")
-    for path in ("onepass", "multipass"):
+    kernel_re = re.compile(r"(\w+)_kernel(?:<(?:\(int\))?(\d)>)?")
+    mode_names = ("norm", "exact", *QUANT)
+    for path in ("onepass", "multipass", *QUANT):
         for Qn, Qb in ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k)):
             for engine in engines:
                 searches[path](Qb, engine)
@@ -732,10 +1104,14 @@ def main() -> int:
                 # host gap that the CUDA-event times of phase 7 include
                 ours = {}
                 for e in on_card:
-                    for name in KERNELS:
-                        if f"{name}_kernel" in e.name:
-                            n_, t_ = ours.get(name, (0, 0.0))
-                            ours[name] = (n_ + 1, t_ + e.self_device_time_total / 1e3)
+                    m = kernel_re.search(e.name)
+                    if m is None or m.group(1) not in KERNELS:
+                        continue
+                    name = m.group(1)
+                    if m.group(2) is not None and mode_names[int(m.group(2))] in QUANT:
+                        name = f"{name}[{mode_names[int(m.group(2))]}]"
+                    n_, t_ = ours.get(name, (0, 0.0))
+                    ours[name] = (n_ + 1, t_ + e.self_device_time_total / 1e3)
                 ours = {name: f"{n_} x {t_ / n_ * 1e3:.1f} us" for name, (n_, t_) in ours.items()}
                 print(f"[profile] {path} Q={Qn} {engine}: device busy {busy_ms:.3f} ms of "
                       f"{prof_ms:.3f} ms wall of this call (idle {1 - busy_ms / prof_ms:.3f}; "
@@ -743,7 +1119,8 @@ def main() -> int:
                       f"{len(on_card)} device ops; per stage {span_ms}; our kernels "
                       f"{ours}; top: "
                       + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top), flush=True)
-    print(f"[profile] ok ({phase_s():.1f} s)", flush=True)
+    print(f"[profile] ok ({phase_s():.1f} s); the whole run took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

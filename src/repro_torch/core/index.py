@@ -19,7 +19,8 @@ from ..device import as_tensor, resolve_device
 from . import hashing
 from .params import DBLSHParams
 
-__all__ = ["DBLSHIndex", "build", "compute_norm_blocks", "from_arrays"]
+__all__ = ["DBLSHIndex", "build", "compute_norm_blocks", "empty_quant_blocks",
+           "from_arrays", "quantize_blocks"]
 
 _ARRAY_FIELDS = (
     "proj_vecs",
@@ -31,6 +32,7 @@ _ARRAY_FIELDS = (
     "vec_blocks",
     "norm_blocks",
 )
+_QUANT_FIELDS = ("qvec_blocks", "qvec_scale")
 
 
 def compute_norm_blocks(data: torch.Tensor, ids_blocks: torch.Tensor) -> torch.Tensor:
@@ -43,6 +45,43 @@ def compute_norm_blocks(data: torch.Tensor, ids_blocks: torch.Tensor) -> torch.T
     valid = ids_blocks < n
     out = norms[torch.where(valid, ids_blocks, 0).long()]
     return torch.where(valid, out, torch.inf).to(torch.float32)
+
+
+def quantize_blocks(data: torch.Tensor, ids_blocks: torch.Tensor,
+                    quant_dtype: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized per-table vector blocks for the reduced-precision dot
+    (kernel B3).  Returns ``(qvec_blocks, qvec_scale)`` slot-aligned with
+    ``ids_blocks``:
+
+      * ``bf16``: the vectors rounded to bfloat16 (nearest even), scale
+        all-ones;
+      * ``int8``: per-slot symmetric quantization ``round(x / s)`` (half
+        to even) clipped to ±127, ``s = amax(|x|) / 127`` (1.0 on all-zero
+        rows), so the approximate dot is ``s_slot * s_q * <qx, qq>``.
+
+    A pure function of ``data``: snapshots keep the float32 truth and a
+    restore re-derives these.  Padded and tombstoned slots (ids outside
+    [0, n)) get zero rows, a zero dot; admission and the float32 re-rank
+    mask them exactly."""
+    if quant_dtype not in ("bf16", "int8"):
+        raise ValueError(f"quant_dtype must be 'bf16' or 'int8', got {quant_dtype!r}")
+    n = data.shape[0]
+    valid = (ids_blocks >= 0) & (ids_blocks < n)
+    x = data[torch.where(valid, ids_blocks, 0).long()]
+    x = torch.where(valid[..., None], x, 0.0)
+    if quant_dtype == "bf16":
+        return x.to(torch.bfloat16), torch.ones(ids_blocks.shape, dtype=torch.float32,
+                                                device=data.device)
+    amax = x.abs().amax(dim=-1)
+    scale = torch.where(amax > 0.0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(x / scale[..., None]), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def empty_quant_blocks(device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (empty) quantized fields of an index with quant_dtype 'none'."""
+    return (torch.zeros((0,), dtype=torch.int8, device=device),
+            torch.zeros((0,), dtype=torch.float32, device=device))
 
 
 @dataclasses.dataclass
@@ -58,6 +97,10 @@ class DBLSHIndex:
       vec_blocks:  (L, nb, B, d)  per-table reordered vectors ('inline'
                                   layout), else an empty tensor
       norm_blocks: (L, nb, B)     per-slot ||x||^2, +inf on padded slots
+      qvec_blocks: (L, nb, B, d)  quantized vectors (bf16 or int8) of the
+                                  quantized distance path, else empty
+      qvec_scale:  (L, nb, B)     per-slot dequant scales (f32; all-ones
+                                  for bf16), else empty
     """
 
     proj_vecs: torch.Tensor
@@ -68,6 +111,8 @@ class DBLSHIndex:
     data: torch.Tensor
     vec_blocks: torch.Tensor
     norm_blocks: torch.Tensor
+    qvec_blocks: torch.Tensor
+    qvec_scale: torch.Tensor
     params: DBLSHParams
 
     @property
@@ -85,7 +130,7 @@ class DBLSHIndex:
     def memory_bytes(self) -> int:
         return sum(
             getattr(self, f).numel() * getattr(self, f).element_size()
-            for f in _ARRAY_FIELDS if f != "data"
+            for f in _ARRAY_FIELDS + _QUANT_FIELDS if f != "data"
         )
 
 
@@ -153,6 +198,10 @@ def build(data, params: DBLSHParams, *, generator: torch.Generator | None = None
             vec_blocks.append(torch.cat([data[order], pad_v]).reshape(nb, B, d))
 
     ids_blocks = torch.stack(ids_blocks).to(torch.int32)
+    if params.quant_dtype != "none":
+        qvec_blocks, qvec_scale = quantize_blocks(data, ids_blocks, params.quant_dtype)
+    else:
+        qvec_blocks, qvec_scale = empty_quant_blocks(device)
     return DBLSHIndex(
         proj_vecs=proj_vecs,
         proj_blocks=torch.stack(proj_blocks),
@@ -163,6 +212,8 @@ def build(data, params: DBLSHParams, *, generator: torch.Generator | None = None
         vec_blocks=(torch.stack(vec_blocks) if params.inline_vectors
                     else torch.zeros((0,), device=device)),
         norm_blocks=compute_norm_blocks(data, ids_blocks),
+        qvec_blocks=qvec_blocks,
+        qvec_scale=qvec_scale,
         params=params,
     )
 
@@ -170,8 +221,10 @@ def build(data, params: DBLSHParams, *, generator: torch.Generator | None = None
 def from_arrays(arrays: dict, params: dict, *, device=None) -> DBLSHIndex:
     """A reference index carried across: ``arrays`` maps the index's field
     names to numpy arrays and ``params`` is ``dataclasses.asdict`` of its
-    params (the shape of the reference's snapshot tree and meta).  Fields
-    of the quantized path, not ported yet, are ignored."""
+    params (the shape of the reference's snapshot tree and meta).  The
+    quantized blocks are derived state, as in the reference's restore:
+    with ``params["quant_dtype"] != "none"`` they are re-derived from
+    ``data`` and ``ids_blocks``, and any given in ``arrays`` are ignored."""
     device = resolve_device(device)
     missing = [f for f in _ARRAY_FIELDS if f not in arrays]
     if missing:
@@ -181,4 +234,9 @@ def from_arrays(arrays: dict, params: dict, *, device=None) -> DBLSHIndex:
                      torch.int32 if f == "ids_blocks" else torch.float32)
         for f in _ARRAY_FIELDS
     }
-    return DBLSHIndex(params=DBLSHParams(**params), **tensors)
+    params = DBLSHParams(**params)
+    if params.quant_dtype != "none":
+        qvec = quantize_blocks(tensors["data"], tensors["ids_blocks"], params.quant_dtype)
+    else:
+        qvec = empty_quant_blocks(device)
+    return DBLSHIndex(params=params, qvec_blocks=qvec[0], qvec_scale=qvec[1], **tensors)

@@ -91,7 +91,9 @@ class DBLSHParams:
     fixed-capacity window scan (DESIGN.md §3); the paper's candidate
     budget 2tL + k is enforced through them.  ``use_kernel`` and
     ``quant_dtype`` are kept so that a reference index's params carry
-    across unchanged; the quantized path is not ported yet.
+    across unchanged; ``quant_dtype`` ('none' | 'bf16' | 'int8') makes
+    ``build`` and ``updates.insert`` keep quantized blocks for
+    ``search_batch_fixed(dtype=...)``.
     """
 
     n: int

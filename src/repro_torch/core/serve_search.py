@@ -21,6 +21,12 @@ The fused engines bin every slot by its first admitting step and keep a
 per-(query, step) top-k, so step j's merge folds k pre-reduced entries.
 On CPU tensors they run the kernels' plain twins.
 
+``dtype='bf16' | 'int8'`` (DESIGN.md §13) computes the candidate dots
+against the index's quantized blocks (kernel B3 on the fused engines, the
+same bins in plain PyTorch on ``torch``), keeps a top-4k shortlist per
+bin, and re-ranks it in float32 (``_rerank_bins``) before the merges, so
+C2 certifies on float32 distances.
+
 ``search_batch_fixed_ref`` keeps the multi-pass algorithm (re-select,
 re-gather and re-verify at every radius, kernels B6/B7 on its fused
 engines): the equivalence oracle of the one-pass pipeline and the
@@ -38,7 +44,7 @@ from torch.profiler import record_function
 from .. import kernels
 from ..device import as_tensor, full_fp32, resolve_device
 from .index import DBLSHIndex
-from ..kernels.ref import slot_d2, take_fill
+from ..kernels.ref import pool_d2, slot_d2, take_fill
 from .query import first_of_group, lexsort, merge_dedup_topk
 
 __all__ = [
@@ -48,13 +54,16 @@ __all__ = [
     "search_batch_fixed_dispatch",
     "PendingSearch",
     "validate_engine",
+    "validate_dtype",
     "ENGINES",
+    "DTYPES",
     "TERM_EXHAUSTED",
     "TERM_C1",
     "TERM_C2",
 ]
 
 ENGINES = ("torch", "kernel", "inline")
+DTYPES = ("fp32", "bf16", "int8")
 
 #: ``explain["term_cause"]`` codes: why a query's schedule stopped
 #: advancing.  C2 wins ties with C1 on the same step, as in the order of
@@ -66,6 +75,29 @@ def validate_engine(engine: str) -> str:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}: use " + " | ".join(ENGINES))
     return engine
+
+
+def validate_dtype(dtype: str, params=None, exact: bool = False) -> str:
+    """The distance-dtype check of the serving path.
+
+    ``fp32`` is the float32 path.  ``bf16``/``int8`` run the dots on the
+    quantized blocks (top-4k shortlist + float32 re-rank), so they need
+    an index built with the matching ``params.quant_dtype``; ``exact=True``
+    promises bit-equality with the multi-pass oracle, which no quantized
+    path can give, so it is refused with them."""
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}: use " + " | ".join(DTYPES))
+    if dtype != "fp32":
+        if exact:
+            raise ValueError(
+                f"exact=True requires dtype='fp32' (got {dtype!r}): the quantized "
+                "path is a shortlist + re-rank, not bit-exact")
+        if params is not None and params.quant_dtype != dtype:
+            raise ValueError(
+                f"dtype={dtype!r} needs an index built with quant_dtype={dtype!r} "
+                f"(index has {params.quant_dtype!r}): rebuild, or derive params "
+                "with quant_dtype set")
+    return dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +125,13 @@ class Termination:
     early_exit: bool = True
 
 
-def _check_engine_index(index: DBLSHIndex, engine: str, device):
+def _check_engine_index(index: DBLSHIndex, engine: str, device, dtype: str = "fp32"):
     validate_engine(engine)
     device = resolve_device(device)
     if index.device.type != device.type:
         raise ValueError(f"index lies on {index.device}, search asked for {device}")
-    if engine == "inline" and not index.params.inline_vectors:
+    # a quantized search reads the quantized blocks, which every layout has
+    if engine == "inline" and dtype == "fp32" and not index.params.inline_vectors:
         raise ValueError("engine 'inline' needs an index built with inline_vectors=True")
 
 
@@ -175,44 +208,88 @@ def _gather_pool(index: DBLSHIndex, blk_q, G, Q, exact: bool):
     # per-slot multiply + last-axis reduce (not a batched matmul): the
     # reduction order is then independent of the batch shape, so a
     # padded batch stays bit-identical to an unpadded one
-    d2 = slot_d2(vb, Q[:, None, None, :], nrm, exact)
+    d2 = slot_d2(vb, Q[:, None, None, :], nrm, "exact" if exact else "norm")
     return d2.reshape(Qn, -1), hw.reshape(Qn, -1)
 
 
 def _fused_bins(index: DBLSHIndex, blk_q, G, Q, halves, engine: str,
-                exact: bool, ks: int):
-    """Fused verify+bin stage (kernels B1/B2): per-(query, step) top-ks
-    bin accumulators instead of the (Qn, C) pool.  Bin j holds the ks
-    best distinct (d2, id) pairs among slots first admitted at step j —
-    exactly step j's delta, since windows nest — and ``cnt`` (Qn, steps)
-    the admitted slots per bin."""
+                exact: bool, dtype: str, ks: int):
+    """Fused verify+bin stage: per-(query, step) top-ks bin accumulators
+    instead of the (Qn, C) pool.  Bin j holds the ks best distinct (d2, id)
+    pairs among slots first admitted at step j — exactly step j's delta,
+    since windows nest — and ``cnt`` (Qn, steps) the admitted slots per bin.
+
+    Engines: 'inline' runs B1 on the blocks in place, 'kernel' B2 on the
+    gathered candidates (B3 in both, for a quantized dtype: quantized rows
+    and their dequant scales in place of the float32 vectors); 'torch'
+    lands here only for a quantized dtype and computes the same bins in
+    plain PyTorch (the reference's jnp twin of the quantized kernels)."""
     p = index.params
     L, M, B, K = p.L, p.max_blocks, p.block_size, p.K
     nb, n, Qn = index.nb, index.n, Q.shape[0]
-    mode = "exact" if exact else "norm"
+    quant = dtype != "fp32"
+    mode = dtype if quant else ("exact" if exact else "norm")
     proj_flat = index.proj_blocks.reshape(L * nb, B, K)
     nrm_flat = index.norm_blocks.reshape(L * nb, B)
     ids_flat = index.ids_blocks.reshape(L * nb, B)
+    if quant:
+        xb = index.qvec_blocks.reshape(L * nb, B, -1)
+        xs = index.qvec_scale.reshape(L * nb, B)
+    else:
+        xb, xs = index.vec_blocks.reshape(L * nb, B, -1), None
 
     if engine == "inline":
         return kernels.fused_window_search(
-            blk_q, halves, proj_flat, index.vec_blocks.reshape(L * nb, B, -1),
-            nrm_flat, ids_flat, G, Q, M=M, ks=ks, n=n, mode=mode,
+            blk_q, halves, proj_flat, xb, nrm_flat, ids_flat, G, Q, M=M, ks=ks, n=n,
+            mode=mode, x_scale=xs,
         )
 
     pb = take_fill(proj_flat, blk_q, torch.inf)
     ib = take_fill(ids_flat, blk_q, n)
     nrm = take_fill(nrm_flat, blk_q, torch.inf)
-    if p.inline_vectors:
-        vb = take_fill(index.vec_blocks.reshape(L * nb, B, -1), blk_q, 0.0)
+    sc = None
+    if quant:
+        vb = take_fill(xb, blk_q, 0)
+        sc = take_fill(xs, blk_q, 1.0)
+    elif p.inline_vectors:
+        vb = take_fill(xb, blk_q, 0.0)
     else:
         vb = take_fill(index.data, ib.reshape(Qn, -1), 0.0)
     Ct = M * B
-    return kernels.fused_cand_search(
-        pb.reshape(Qn, L, Ct, K), vb.reshape(Qn, L, Ct, -1),
-        nrm.reshape(Qn, L, Ct), ib.reshape(Qn, L, Ct), halves, G, Q,
-        ks=ks, n=n, mode=mode,
-    )
+    if engine == "kernel":
+        return kernels.fused_cand_search(
+            pb.reshape(Qn, L, Ct, K), vb.reshape(Qn, L, Ct, -1),
+            nrm.reshape(Qn, L, Ct), ib.reshape(Qn, L, Ct), halves, G, Q,
+            ks=ks, n=n, mode=mode, cand_scale=None if sc is None else sc.reshape(Qn, L, Ct),
+        )
+
+    # 'torch' + quantized: the pool, binned, each bin a merge from empty
+    g_rep = torch.repeat_interleave(G, M, dim=1)  # (Qn, S, K)
+    hw = torch.abs(pb - g_rep[:, :, None, :]).amax(dim=-1).reshape(Qn, -1)
+    d2q = pool_d2(vb, Q, nrm, mode, sc).reshape(Qn, -1)
+    ci = ib.reshape(Qn, -1)
+    steps = halves.shape[0]
+    binid = (hw[:, :, None] > halves).sum(dim=-1)  # (Qn, C)
+    cnt = torch.stack([(binid == j).sum(dim=1, dtype=torch.int32) for j in range(steps)], 1)
+    bd0 = torch.full((Qn, ks), torch.inf, device=Q.device)
+    bi0 = torch.full((Qn, ks), n, dtype=torch.int32, device=Q.device)
+    bins = [merge_dedup_topk(bd0, bi0, torch.where(binid == j, d2q, torch.inf), ci, n, ks)
+            for j in range(steps)]
+    return (torch.stack([b[0] for b in bins], 1), torch.stack([b[1] for b in bins], 1), cnt)
+
+
+def _rerank_bins(index: DBLSHIndex, Q, bins_d, bins_i):
+    """Float32 re-rank of the quantized shortlist bins: gather the
+    shortlisted rows of ``data`` and recompute their norm-form distances,
+    so the merges and C2's ``kth <= c*r`` run on float32 distances.  The
+    only loss the quantization leaves is a true neighbour that fell off
+    its bin's top-4k shortlist.  Unfilled and invalid slots get +inf."""
+    Qn, steps, ks = bins_d.shape
+    x = take_fill(index.data, bins_i.reshape(Qn, steps * ks), 0.0)
+    x = x.reshape(Qn, steps, ks, -1)
+    d2 = slot_d2(x, Q[:, None, None, :], torch.sum(torch.square(x), dim=-1), "norm")
+    valid = (bins_i < index.n) & torch.isfinite(bins_d)
+    return torch.where(valid, d2, torch.inf)
 
 
 def _masked_delta_merge(best_d, best_i, delta, d2, ci, done, n: int, k: int):
@@ -257,7 +334,12 @@ def search_batch_fixed(
         :class:`Termination` adds the C1/C2 done masks and early exit.
       with_explain: also return the per-step arrays the stats reduce away
         (implies ``with_stats``).  Results are the same with it on or off.
-      dtype: only 'fp32' is ported so far.
+      dtype: 'fp32' | 'bf16' | 'int8'.  The quantized dtypes run the dots
+        on the index's quantized blocks (``params.quant_dtype`` must
+        match; kernel B3 on the fused engines), keep a top-4k shortlist
+        per schedule bin and re-rank it in float32 before the merges, so
+        the returned distances and C2 are float32; only a neighbour that
+        fell off its bin's shortlist is lost.
       device: where to run (None -> the CUDA device); the index must lie
         there.
 
@@ -274,11 +356,10 @@ def search_batch_fixed(
          "term_cause":   (Qn,)       i32  TERM_EXHAUSTED | TERM_C1 | TERM_C2,
          "final_radius": (Qn,)       f32  radius at termination}
     """
-    _check_engine_index(index, engine, device)
-    if dtype != "fp32":
-        raise NotImplementedError(f"dtype={dtype!r}: the quantized path is not ported yet (ROADMAP A14)")
-    with_stats = with_stats or with_explain
     p = index.params
+    validate_dtype(dtype, p, exact)
+    _check_engine_index(index, engine, device, dtype)
+    with_stats = with_stats or with_explain
     k = k or p.k
     n, nb = index.n, index.nb
     L, M, B = p.L, p.max_blocks, p.block_size
@@ -301,14 +382,19 @@ def search_batch_fixed(
         blk_q = blk_q.reshape(Qn, L * M).contiguous()
         bhw_q = bhw.transpose(0, 1).reshape(Qn, L * M)
 
-    # verify once: the fused bins (kernels B1/B2) or the (Qn, C) pool
-    use_bins = engine in ("kernel", "inline")
+    # verify once: the fused bins (kernels B1/B2, B3 when quantized; every
+    # quantized dtype) or the (Qn, C) pool (the 'torch' fp32 path)
+    quant = dtype != "fp32"
+    use_bins = engine in ("kernel", "inline") or quant
+    ks = 4 * k if quant else k  # quantized: a top-4k shortlist per bin
     if use_bins or with_explain:
         halves_t = torch.tensor(np.array(halves, np.float32), device=dev)
     with record_function("dblsh.verify"):
         if use_bins:
             bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,
-                                                  exact, k)
+                                                  exact, dtype, ks)
+            if quant:
+                bins_d = _rerank_bins(index, Q, bins_d, bins_i)
             # C1's admitted count at step j is the slots of bins 0..j
             cum_adm = torch.cumsum(bin_cnt, dim=1)
         else:
@@ -431,7 +517,7 @@ def _verify_table(index: DBLSHIndex, li: int, blk, g, Q, w, engine: str, k: int)
         return kernels.candidate_verify(cp, cv, ci, g, Q, w, n=n, k=k)
     # 'torch': the reference's jnp engine, lax.top_k's lowest-index ties
     inbox = (torch.abs(cp - g[:, None, :]) <= float(np.float32(0.5) * w)).all(dim=-1)
-    d2 = torch.where(inbox & (ci < n), slot_d2(cv, Q[:, None, :], None, True), torch.inf)
+    d2 = torch.where(inbox & (ci < n), slot_d2(cv, Q[:, None, :], None, "exact"), torch.inf)
     d_l, idx = torch.sort(d2, dim=1, stable=True)
     d_l, idx = d_l[:, :k], idx[:, :k]
     return d_l, torch.where(torch.isfinite(d_l), torch.gather(ci, 1, idx), n)

@@ -7,6 +7,7 @@ from .ops import (
     fused_cand_search,
     fused_window_search,
     launches,
+    mode_launches,
     reset_launches,
     window_verify,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "fused_cand_search",
     "fused_window_search",
     "launches",
+    "mode_launches",
     "reset_launches",
     "window_verify",
     "ref",

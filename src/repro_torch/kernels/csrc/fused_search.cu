@@ -14,11 +14,21 @@
 // lexicographically smallest DISTINCT (d2, id) pairs with finite d2
 // (unfilled: +inf / n) and cnt[q, j] = number of slots in bin j.
 //
+// Kernel B3, the reference's quantized modes of the same two kernels
+// (`_slot_d2` modes bf16/int8, repro/kernels/window_verify.py:270, with
+// the query quantized by repro/kernels/ops.py:262), is the kBf16 / kInt8
+// instantiation of each: the dot runs on bf16 or int8 rows (x) against
+// the quantized query, then is scaled by the slot's and the query's
+// dequant scales; norms, q2 and admission stay float32.
+//
 // Bound on this card: the work is a gather of Q*S*B rows of K + d + 2
 // words (31 MB at the main path, Q = 64, S = 25, B = 64, K = 10, d = 64:
 // ~9 us at 3.35 TB/s), followed by a data-dependent selection.  At that
 // size the kernel is bound by launch latency and by the selection, not
-// by bandwidth.
+// by bandwidth.  The quantized rows are smaller (int8: K*4 + d + 12 =
+// 116 bytes a slot, ~12 MB, ~3.5 us; bf16: 180 bytes, ~5.5 us), but the
+// quantized search asks for ks = 4k per bin, four times the selection
+// rounds of the float32 search: B3 is bound by its selection.
 //
 // Design (a simple, deterministic first version):
 //   * one thread block per query, looping over the query's S*B slots —
@@ -39,7 +49,10 @@
 //     the dedup relies on that;
 //   * block bases use 64-bit element offsets (the main path addresses
 //     3.2e8 floats of vec_blocks);
-//   * any d (no vector loads that would need d % 4 == 0);
+//   * any d (no vector loads that would need d % 4 == 0; int8 rows are
+//     read a byte at a time);
+//   * the quantized query is staged in shared memory widened (bf16 to
+//     float, int8 to int), in the place of the float32 query;
 //   * the staging, hw, d2 and selection helpers live in search_common.cuh,
 //     shared with the per-radius verify kernels (window_verify.cu).
 
@@ -75,14 +88,47 @@ __device__ inline Stage carve(char* base, int steps, int LK, int d, int C) {
   return s;
 }
 
+// Stage this query's halves, projections and distance operand: the
+// float32 query, or the quantized one widened (bf16 -> float, int8 -> int
+// in the same 4-byte words).
+template <int kMode>
 __device__ inline void stage_query(const Stage& s, const float* __restrict__ halves,
-                                   const float* __restrict__ g,
-                                   const float* __restrict__ q, int qi, int steps,
-                                   int LK, int d) {
+                                   const float* __restrict__ g, const void* qv, int qi,
+                                   int steps, int LK, int d) {
   stage(s.halves, halves, steps);
   stage(s.g, g + (int64_t)qi * LK, LK);
-  stage(s.q, q + (int64_t)qi * d, d);
+  if constexpr (kMode == kBf16) {
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(qv) + (int64_t)qi * d;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) s.q[i] = __bfloat162float(src[i]);
+  } else if constexpr (kMode == kInt8) {
+    const int8_t* src = static_cast<const int8_t*>(qv) + (int64_t)qi * d;
+    int* dst = reinterpret_cast<int*>(s.q);
+    for (int i = threadIdx.x; i < d; i += blockDim.x) dst[i] = src[i];
+  } else {
+    stage(s.q, static_cast<const float*>(qv) + (int64_t)qi * d, d);
+  }
 }
+
+// d2 of slot `row` (a row of x and of the per-slot arrays) in mode kMode;
+// xs: per-slot dequant scales (quantized modes only), qs: this query's.
+template <int kMode>
+__device__ inline float mode_d2(const void* x, int64_t row, const float* sq, int d,
+                                float nrm, float q2, const float* __restrict__ xs,
+                                float qs) {
+  if constexpr (kMode == kExact) {
+    return slot_d2<true>(static_cast<const float*>(x) + row * d, sq, d, nrm, q2);
+  } else if constexpr (kMode == kNorm) {
+    return slot_d2<false>(static_cast<const float*>(x) + row * d, sq, d, nrm, q2);
+  } else if constexpr (kMode == kBf16) {
+    return slot_d2_q(static_cast<const __nv_bfloat16*>(x) + row * d, sq, d, nrm, q2,
+                     xs[row], qs);
+  } else {
+    return slot_d2_q(static_cast<const int8_t*>(x) + row * d,
+                     reinterpret_cast<const int*>(sq), d, nrm, q2, xs[row], qs);
+  }
+}
+
+__host__ __device__ constexpr bool quantized(int mode) { return mode == kBf16 || mode == kInt8; }
 
 __device__ inline int slot_bin(float hw, const float* halves, int steps) {
   int b = 0;
@@ -109,23 +155,27 @@ __device__ void select_bins(const Stage& s, int C, int steps, int ks, int n,
 
 // B1: slots are rows of the selected STR blocks of the flattened (L*nb)
 // block axis; block ids outside [0, lnb) contribute nothing, not even to cnt.
-template <bool kExact>
+// x: (L*nb, B, d) float32, bf16 or int8 by kMode; xs: (L*nb, B) dequant
+// scales and qs: (Q,) query scales, read only in the quantized modes.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) fused_window_search_kernel(
     const int* __restrict__ blk, const float* __restrict__ halves,
-    const float* __restrict__ proj, const float* __restrict__ x,
+    const float* __restrict__ proj, const void* __restrict__ x,
     const float* __restrict__ nrm, const int* __restrict__ ids,
-    const float* __restrict__ g, const float* __restrict__ q,
-    const float* __restrict__ q2, float* __restrict__ bd, int* __restrict__ bi,
+    const float* __restrict__ g, const void* __restrict__ qv,
+    const float* __restrict__ q2, const float* __restrict__ qs,
+    const float* __restrict__ xs, float* __restrict__ bd, int* __restrict__ bi,
     int* __restrict__ cnt, int S, int M, int lnb, int B, int K, int d, int L,
     int steps, int ks, int n) {
   extern __shared__ __align__(16) char smem[];
   const int qi = blockIdx.x;
   const int C = S * B;
   const Stage s = carve(smem, steps, L * K, d, C);
-  stage_query(s, halves, g, q, qi, steps, L * K, d);
+  stage_query<kMode>(s, halves, g, qv, qi, steps, L * K, d);
   __syncthreads();
 
   const float qq = q2[qi];
+  const float qsc = quantized(kMode) ? qs[qi] : 1.0f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const int slot = c / B;
     const int b = c - slot * B;
@@ -137,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) fused_window_search_kernel(
       const int64_t row = (int64_t)bk * B + b;
       bin = slot_bin(slot_hw(proj + row * K, s.g + (slot / M) * K, K), s.halves, steps);
       if (bin < steps) {
-        dv = slot_d2<kExact>(x + row * d, s.q, d, nrm[row], qq);
+        dv = mode_d2<kMode>(x, row, s.q, d, nrm[row], qq, xs, qsc);
         iv = ids[row];
       }
     }
@@ -151,30 +201,33 @@ __global__ void __launch_bounds__(kThreads) fused_window_search_kernel(
 }
 
 // B2: slots are pre-gathered (Q, L, Ct, .) candidates; invalid slots carry
-// +inf projections, so hw = +inf keeps them out of every bin.
-template <bool kExact>
+// +inf projections, so hw = +inf keeps them out of every bin.  cx is
+// float32, bf16 or int8 by kMode; cscale: (Q, L, Ct) dequant scales.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) fused_cand_search_kernel(
-    const float* __restrict__ cproj, const float* __restrict__ cx,
+    const float* __restrict__ cproj, const void* __restrict__ cx,
     const float* __restrict__ cnrm, const int* __restrict__ cids,
     const float* __restrict__ halves, const float* __restrict__ g,
-    const float* __restrict__ q, const float* __restrict__ q2,
+    const void* __restrict__ qv, const float* __restrict__ q2,
+    const float* __restrict__ qs, const float* __restrict__ cscale,
     float* __restrict__ bd, int* __restrict__ bi, int* __restrict__ cnt, int L,
     int Ct, int K, int d, int steps, int ks, int n) {
   extern __shared__ __align__(16) char smem[];
   const int qi = blockIdx.x;
   const int C = L * Ct;
   const Stage s = carve(smem, steps, L * K, d, C);
-  stage_query(s, halves, g, q, qi, steps, L * K, d);
+  stage_query<kMode>(s, halves, g, qv, qi, steps, L * K, d);
   __syncthreads();
 
   const float qq = q2[qi];
+  const float qsc = quantized(kMode) ? qs[qi] : 1.0f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const int64_t row = (int64_t)qi * C + c;
     float dv = INFINITY;
     int iv = n;
     const int bin = slot_bin(slot_hw(cproj + row * K, s.g + (c / Ct) * K, K), s.halves, steps);
     if (bin < steps) {
-      dv = slot_d2<kExact>(cx + row * d, s.q, d, cnrm[row], qq);
+      dv = mode_d2<kMode>(cx, row, s.q, d, cnrm[row], qq, cscale, qsc);
       iv = cids[row];
     }
     s.d2[c] = dv;
@@ -186,11 +239,24 @@ __global__ void __launch_bounds__(kThreads) fused_cand_search_kernel(
               bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
 }
 
+// The instantiation of a kernel template for a wrapper's mode number.
+template <typename Kernel>
+Kernel pick(int mode, Kernel norm, Kernel exact, Kernel bf16, Kernel int8) {
+  switch (mode) {
+    case kNorm: return norm;
+    case kExact: return exact;
+    case kBf16: return bf16;
+    case kInt8: return int8;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of either kernel asks for.
+// Dynamic shared memory one block of either kernel asks for (in every
+// mode: the quantized query is staged widened to 4-byte words).
 size_t fused_search_smem_bytes(int steps, int LK, int d, int C) {
   return stage_bytes(steps, LK, d, C);
 }
@@ -200,32 +266,41 @@ const char* fused_search_error_string(int err) {
 }
 
 // Returns a cudaError_t (0 = launched).  Launches on `stream`, no sync.
+// mode: 0 norm, 1 exact (x, qv float32), 2 bf16, 3 int8 (x, qv in that
+// type; qs and xs float32).  qs and xs are not read in modes 0 and 1.
 int fused_window_search_launch(const int* blk, const float* halves, const float* proj,
-                               const float* x, const float* nrm, const int* ids,
-                               const float* g, const float* q, const float* q2,
-                               float* bd, int* bi, int* cnt, int Q, int S, int M,
-                               int lnb, int B, int K, int d, int L, int steps, int ks,
-                               int n, int exact, cudaStream_t stream) {
+                               const void* x, const float* nrm, const int* ids,
+                               const float* g, const void* qv, const float* q2,
+                               const float* qs, const float* xs, float* bd, int* bi,
+                               int* cnt, int Q, int S, int M, int lnb, int B, int K, int d,
+                               int L, int steps, int ks, int n, int mode,
+                               cudaStream_t stream) {
   const size_t smem = stage_bytes(steps, L * K, d, S * B);
-  auto kernel = exact ? fused_window_search_kernel<true> : fused_window_search_kernel<false>;
+  auto kernel = pick(mode, fused_window_search_kernel<kNorm>,
+                     fused_window_search_kernel<kExact>, fused_window_search_kernel<kBf16>,
+                     fused_window_search_kernel<kInt8>);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const int err = prepare(kernel, smem);
   if (err != 0) return err;
-  kernel<<<Q, kThreads, smem, stream>>>(blk, halves, proj, x, nrm, ids, g, q, q2, bd, bi,
-                                        cnt, S, M, lnb, B, K, d, L, steps, ks, n);
+  kernel<<<Q, kThreads, smem, stream>>>(blk, halves, proj, x, nrm, ids, g, qv, q2, qs, xs,
+                                        bd, bi, cnt, S, M, lnb, B, K, d, L, steps, ks, n);
   return (int)cudaGetLastError();
 }
 
-int fused_cand_search_launch(const float* cproj, const float* cx, const float* cnrm,
+int fused_cand_search_launch(const float* cproj, const void* cx, const float* cnrm,
                              const int* cids, const float* halves, const float* g,
-                             const float* q, const float* q2, float* bd, int* bi,
-                             int* cnt, int Q, int L, int Ct, int K, int d, int steps,
-                             int ks, int n, int exact, cudaStream_t stream) {
+                             const void* qv, const float* q2, const float* qs,
+                             const float* cscale, float* bd, int* bi, int* cnt, int Q,
+                             int L, int Ct, int K, int d, int steps, int ks, int n,
+                             int mode, cudaStream_t stream) {
   const size_t smem = stage_bytes(steps, L * K, d, L * Ct);
-  auto kernel = exact ? fused_cand_search_kernel<true> : fused_cand_search_kernel<false>;
+  auto kernel = pick(mode, fused_cand_search_kernel<kNorm>, fused_cand_search_kernel<kExact>,
+                     fused_cand_search_kernel<kBf16>, fused_cand_search_kernel<kInt8>);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const int err = prepare(kernel, smem);
   if (err != 0) return err;
-  kernel<<<Q, kThreads, smem, stream>>>(cproj, cx, cnrm, cids, halves, g, q, q2, bd, bi,
-                                        cnt, L, Ct, K, d, steps, ks, n);
+  kernel<<<Q, kThreads, smem, stream>>>(cproj, cx, cnrm, cids, halves, g, qv, q2, qs,
+                                        cscale, bd, bi, cnt, L, Ct, K, d, steps, ks, n);
   return (int)cudaGetLastError();
 }
 

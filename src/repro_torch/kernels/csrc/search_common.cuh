@@ -6,10 +6,12 @@
 // paths stage q in shared memory with `stage`, compute a slot's diff-form
 // d2 with the same `slot_d2<true>` fmaf chain, and select with the same
 // `warp_select` rule, so one point yields the same (d2, id) pair in every
-// kernel.
+// kernel.  The quantized distances of B3 (`slot_d2_q`, modes bf16 and
+// int8 of B1/B2) are separate overloads and leave that chain alone.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -53,6 +55,39 @@ __device__ inline float slot_d2(const float* __restrict__ x, const float* q, int
     for (int i = 0; i < d; ++i) acc = fmaf(__ldg(x + i), q[i], acc);
     return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
   }
+}
+
+// The distance modes of the fused kernels, numbered as the wrappers'
+// `_MODES`: the float32 norm and diff forms, and kernel B3's quantized dots.
+enum Mode : int { kNorm = 0, kExact = 1, kBf16 = 2, kInt8 = 3 };
+
+// Dequantize a quantized dot and finish the norm form, in the reference's
+// order: t = (xs * qs) * dot, then max(nrm - 2 t + q2, 0).  Every step is
+// an explicitly rounded intrinsic, so nothing is contracted into an fma
+// and the result is bit-equal to the plain PyTorch twin for the same dot.
+__device__ inline float dequant_d2(float dot, float nrm, float q2, float xs, float qs) {
+  const float t = __fmul_rn(__fmul_rn(xs, qs), dot);
+  return fmaxf(__fadd_rn(__fsub_rn(nrm, __fmul_rn(2.0f, t)), q2), 0.0f);
+}
+
+// B3, bf16 mode: the query is staged widened to float; a bf16 x bf16
+// product is exact in float32, so this fmaf chain is a bf16 dot with
+// float32 accumulation (the reference's, up to summation order).
+__device__ inline float slot_d2_q(const __nv_bfloat16* __restrict__ x, const float* qf,
+                                  int d, float nrm, float q2, float xs, float qs) {
+  float acc = 0.0f;
+  for (int i = 0; i < d; ++i) acc = fmaf(__bfloat162float(__ldg(x + i)), qf[i], acc);
+  return dequant_d2(acc, nrm, q2, xs, qs);
+}
+
+// B3, int8 mode: the query is staged widened to int; the dot accumulates
+// in int32, exact and independent of order (|dot| <= 127^2 d, exact in
+// float32 for d <= 1040).  Byte loads: any d, any row alignment.
+__device__ inline float slot_d2_q(const int8_t* __restrict__ x, const int* qi, int d,
+                                  float nrm, float q2, float xs, float qs) {
+  int acc = 0;
+  for (int i = 0; i < d; ++i) acc += (int)__ldg(x + i) * qi[i];
+  return dequant_d2((float)acc, nrm, q2, xs, qs);
 }
 
 // Lexicographic (d, id) "a < b".

@@ -4,7 +4,9 @@ A wrapper given CPU tensors runs the kernel's plain twin (``ref.py``);
 given CUDA tensors it launches the kernel on the current stream, or
 raises.  It never falls back from one to the other.  ``launches`` counts
 kernel launches per wrapper, so a run can show which kernels its path
-went through.
+went through; ``mode_launches`` splits the fused kernels' launches by
+distance mode, so a quantized launch (kernel B3) is told from a float32
+one.
 """
 
 from __future__ import annotations
@@ -15,11 +17,14 @@ import torch
 
 from . import _build
 from .ref import (
+    QUANT_MODES,
     candidate_verify_ref,
     fused_cand_search_ref,
     fused_window_search_ref,
     window_verify_ref,
 )
+# the reference's ops._quantize_query: the kernels and their twins share it
+from .ref import quantize_query as _quantize_query
 
 __all__ = [
     "fused_window_search",
@@ -27,20 +32,32 @@ __all__ = [
     "window_verify",
     "candidate_verify",
     "launches",
+    "mode_launches",
     "reset_launches",
 ]
+
+#: distance modes of the fused kernels, in the kernels' numbering: the
+#: float32 norm and diff forms, and the quantized dots of kernel B3
+_MODES = ("norm", "exact", *QUANT_MODES)
+_X_DTYPES = {"norm": torch.float32, "exact": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fused_window_search": 0, "fused_cand_search": 0, "window_verify": 0,
             "candidate_verify": 0}
+#: the fused kernels' launches per distance mode (their sum is ``launches``)
+mode_launches = {name: dict.fromkeys(_MODES, 0)
+                 for name in ("fused_window_search", "fused_cand_search")}
 
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
-_MODES = ("norm", "exact")
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in mode_launches.values():
+        for mode in counts:
+            counts[mode] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -62,12 +79,27 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_mode(mode: str) -> None:
+def _check_mode(mode: str, x: torch.Tensor, scale, scale_name: str) -> None:
+    """The mode exists, x has its dtype, and a dequant scale (float32) is
+    given exactly when the mode is quantized."""
     if mode not in _MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: only {_MODES} are ported; the bf16/int8 modes "
-            "come with the quantized path (ROADMAP A14/B3)"
-        )
+        raise ValueError(f"unknown distance mode {mode!r}: use " + " | ".join(_MODES))
+    if x.dtype != _X_DTYPES[mode]:
+        raise TypeError(f"mode {mode!r} takes {_X_DTYPES[mode]} vectors, got {x.dtype}")
+    if (scale is not None) != (mode in QUANT_MODES):
+        raise ValueError(f"{scale_name} is required by the quantized modes "
+                         f"{QUANT_MODES} and only by them (mode {mode!r})")
+    if scale is not None and scale.dtype != torch.float32:
+        raise TypeError(f"{scale_name}: dtype {scale.dtype}, expected torch.float32")
+
+
+def _query_operands(q: torch.Tensor, mode: str):
+    """(qv, q2, qs) as the kernels read them: the query in the mode's
+    dtype, the float32 query's squared norms (Q,), the query scales (Q,)
+    or None."""
+    q2 = torch.sum(torch.square(q), dim=-1)
+    qv, qs = _quantize_query(q, mode)
+    return qv.contiguous(), q2, None if qs is None else qs.reshape(-1).contiguous()
 
 
 def _prepare(lib, steps: int, LK: int, d: int, C: int, ks: int, n: int):
@@ -103,32 +135,42 @@ def _raise_on(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _count(name: str, mode: str) -> None:
+    launches[name] += 1
+    mode_launches[name][mode] += 1
 
 
 def fused_window_search(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
                         ids_blocks, g, q, *, M: int, ks: int, n: int,
-                        mode: str = "norm"):
-    """Fused one-pass search over the selected STR blocks (kernel B1).
+                        mode: str = "norm", x_scale=None):
+    """Fused one-pass search over the selected STR blocks (kernel B1; in
+    the modes bf16/int8, kernel B3).
 
     Args:
       blk_idx: (Q, S) int32 flattened block ids, S = L*M (ids outside
         [0, L*nb) are invalid slots and contribute nothing).
       halves: (steps,) f32 schedule half window widths, ascending.
-      proj_blocks: (L*nb, B, K) f32; x_blocks: (L*nb, B, d) f32;
-      norm_blocks: (L*nb, B) f32 (+inf padded); ids_blocks: (L*nb, B) int32;
-      g: (Q, L, K) f32; q: (Q, d) f32.
-      M: blocks per table (slot s belongs to table s // M); ks: bin width;
-      n: the id of unfilled slots; mode: 'norm' | 'exact'.
+      proj_blocks: (L*nb, B, K) f32; x_blocks: (L*nb, B, d) f32 (modes
+        'norm'/'exact') or the quantized blocks (bf16 / int8 for modes
+        'bf16' / 'int8'); norm_blocks: (L*nb, B) f32 (+inf padded);
+      ids_blocks: (L*nb, B) int32; g: (Q, L, K) f32; q: (Q, d) f32 (the
+        quantized modes quantize it as the reference does).
+      M: blocks per table (slot s belongs to table s // M); ks: bin width
+        (k, or 4k for the quantized shortlist); n: the id of unfilled
+        slots; mode: 'norm' | 'exact' | 'bf16' | 'int8'.
+      x_scale: (L*nb, B) f32 per-slot dequant scales (quantized modes only).
 
     Returns: bins_d (Q, steps, ks) f32 ascending, bins_i (Q, steps, ks)
     int32 (``n`` unfilled), cnt (Q, steps) int32 slots per bin.
     """
-    _check_mode(mode)
+    _check_mode(mode, x_blocks, x_scale, "x_scale")
     args = (blk_idx, halves, proj_blocks, x_blocks, norm_blocks, ids_blocks, g, q)
-    if not _on_cuda(*args):
-        return fused_window_search_ref(*args, M=M, ks=ks, n=n, mode=mode)
+    if not _on_cuda(*args, *(() if x_scale is None else (x_scale,))):
+        return fused_window_search_ref(*args, M=M, ks=ks, n=n, mode=mode, x_scale=x_scale)
 
     Qn, S = blk_idx.shape
     lnb, B, K = proj_blocks.shape
@@ -141,72 +183,79 @@ def fused_window_search(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
     _check("blk_idx", blk_idx, i32, (Qn, S))
     _check("halves", halves, f32, (steps,))
     _check("proj_blocks", proj_blocks, f32, (lnb, B, K))
-    _check("x_blocks", x_blocks, f32, (lnb, B, d))
+    _check("x_blocks", x_blocks, x_blocks.dtype, (lnb, B, d))
     _check("norm_blocks", norm_blocks, f32, (lnb, B))
     _check("ids_blocks", ids_blocks, i32, (lnb, B))
     _check("g", g, f32, (Qn, L, K))
     _check("q", q, f32, (Qn, d))
+    if x_scale is not None:
+        _check("x_scale", x_scale, f32, (lnb, B))
     lib = _build.load()
     _prepare(lib, steps, L * K, d, S * B, ks, n)
     bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
     if Qn == 0:
         return bd, bi, cnt
-    q2 = torch.sum(torch.square(q), dim=-1)
+    qv, q2, qs = _query_operands(q, mode)
     with torch.cuda.device(q.device):
         err = lib.fused_window_search_launch(
             *map(_ptr, (blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
-                        ids_blocks, g, q, q2, bd, bi, cnt)),
-            Qn, S, M, lnb, B, K, d, L, steps, ks, n, int(mode == "exact"),
+                        ids_blocks, g, qv, q2, qs, x_scale, bd, bi, cnt)),
+            Qn, S, M, lnb, B, K, d, L, steps, ks, n, _MODES.index(mode),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(lib, err, "fused_window_search")
-    launches["fused_window_search"] += 1
+    _count("fused_window_search", mode)
     return bd, bi, cnt
 
 
 def fused_cand_search(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q, *,
-                      ks: int, n: int, mode: str = "norm"):
-    """Fused one-pass search over pre-gathered candidates (kernel B2).
+                      ks: int, n: int, mode: str = "norm", cand_scale=None):
+    """Fused one-pass search over pre-gathered candidates (kernel B2; in
+    the modes bf16/int8, kernel B3).
 
     Args:
       cand_proj: (Q, L, Ct, K) f32 (+inf on invalid slots — that alone
-        keeps them out of every bin); cand_x: (Q, L, Ct, d) f32;
-      cand_norms: (Q, L, Ct) f32 (+inf padded); cand_ids: (Q, L, Ct) int32;
-      halves: (steps,); g: (Q, L, K); q: (Q, d).
+        keeps them out of every bin); cand_x: (Q, L, Ct, d) f32, or bf16 /
+        int8 in the quantized modes; cand_norms: (Q, L, Ct) f32 (+inf
+        padded); cand_ids: (Q, L, Ct) int32; halves: (steps,); g: (Q, L, K);
+        q: (Q, d) f32; cand_scale: (Q, L, Ct) f32 dequant scales
+        (quantized modes only).
 
     Returns: (bins_d, bins_i, cnt) as :func:`fused_window_search`.
     """
-    _check_mode(mode)
+    _check_mode(mode, cand_x, cand_scale, "cand_scale")
     args = (cand_proj, cand_x, cand_norms, cand_ids, halves, g, q)
-    if not _on_cuda(*args):
-        return fused_cand_search_ref(*args, ks=ks, n=n, mode=mode)
+    if not _on_cuda(*args, *(() if cand_scale is None else (cand_scale,))):
+        return fused_cand_search_ref(*args, ks=ks, n=n, mode=mode, cand_scale=cand_scale)
 
     Qn, L, Ct, K = cand_proj.shape
     d = cand_x.shape[-1]
     steps = halves.shape[0]
     f32, i32 = torch.float32, torch.int32
     _check("cand_proj", cand_proj, f32, (Qn, L, Ct, K))
-    _check("cand_x", cand_x, f32, (Qn, L, Ct, d))
+    _check("cand_x", cand_x, cand_x.dtype, (Qn, L, Ct, d))
     _check("cand_norms", cand_norms, f32, (Qn, L, Ct))
     _check("cand_ids", cand_ids, i32, (Qn, L, Ct))
     _check("halves", halves, f32, (steps,))
     _check("g", g, f32, (Qn, L, K))
     _check("q", q, f32, (Qn, d))
+    if cand_scale is not None:
+        _check("cand_scale", cand_scale, f32, (Qn, L, Ct))
     lib = _build.load()
     _prepare(lib, steps, L * K, d, L * Ct, ks, n)
     bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
     if Qn == 0:
         return bd, bi, cnt
-    q2 = torch.sum(torch.square(q), dim=-1)
+    qv, q2, qs = _query_operands(q, mode)
     with torch.cuda.device(q.device):
         err = lib.fused_cand_search_launch(
-            *map(_ptr, (cand_proj, cand_x, cand_norms, cand_ids, halves, g, q,
-                        q2, bd, bi, cnt)),
-            Qn, L, Ct, K, d, steps, ks, n, int(mode == "exact"),
+            *map(_ptr, (cand_proj, cand_x, cand_norms, cand_ids, halves, g, qv,
+                        q2, qs, cand_scale, bd, bi, cnt)),
+            Qn, L, Ct, K, d, steps, ks, n, _MODES.index(mode),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(lib, err, "fused_cand_search")
-    launches["fused_cand_search"] += 1
+    _count("fused_cand_search", mode)
     return bd, bi, cnt
 
 

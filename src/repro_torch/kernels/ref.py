@@ -11,9 +11,12 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "QUANT_MODES",
     "topk_rounds",
     "merge_topk",
+    "quantize_query",
     "slot_d2",
+    "pool_d2",
     "take_fill",
     "bins_from_pool",
     "fused_window_search_ref",
@@ -23,6 +26,7 @@ __all__ = [
 ]
 
 IMAX = 2**31 - 1
+QUANT_MODES = ("bf16", "int8")
 
 
 def topk_rounds(cd: torch.Tensor, ci: torch.Tensor, k: int, fill_id: int):
@@ -57,19 +61,67 @@ def merge_topk(cd, ci, out_d, out_i, k: int):
     )
 
 
-def slot_d2(x: torch.Tensor, q: torch.Tensor, nrm: torch.Tensor, exact: bool):
+def quantize_query(q: torch.Tensor, mode: str):
+    """Query-side operand of a distance mode (the reference's
+    ``ops._quantize_query``): (qv, qs), the query in the mode's dtype and
+    its (Q, 1) float32 dequant scale.
+
+    bf16: round to nearest even, scale all-ones.  int8: symmetric per
+    query, ``qs = amax(|q|) / 127`` (1.0 on all-zero rows), ``round``
+    half to even, clipped to ±127.  Other modes: (q, None)."""
+    if mode == "bf16":
+        return q.to(torch.bfloat16), torch.ones((q.shape[0], 1), dtype=torch.float32,
+                                                device=q.device)
+    if mode == "int8":
+        amax = q.abs().amax(dim=-1, keepdim=True)
+        qs = torch.where(amax > 0.0, amax / 127.0, 1.0)
+        qv = torch.clamp(torch.round(q / qs), -127.0, 127.0).to(torch.int8)
+        return qv, qs
+    return q, None
+
+
+def slot_d2(x: torch.Tensor, q: torch.Tensor, nrm, mode: str, *, q2=None,
+            xscale=None, qscale=None):
     """Per-slot squared distances over the last axis.
 
-    ``exact``: diff form sum((x - q)^2).  Otherwise the norm form
-    max(||x||^2 - 2<q,x> + ||q||^2, 0) with the squared norms ``nrm``
-    precomputed (+inf norms poison padded slots).  The dot is a per-slot
-    multiply plus last-axis reduce, not a batched matmul: its order then
-    does not depend on the batch shape.  ``q`` broadcasts against ``x``."""
-    if exact:
+    ``exact``: diff form sum((x - q)^2).  ``norm``: max(||x||^2 - 2<q,x> +
+    ||q||^2, 0) with the squared norms ``nrm`` precomputed (+inf norms
+    poison padded slots).  The dot is a per-slot multiply plus last-axis
+    reduce, not a batched matmul: its order then does not depend on the
+    batch shape.  ``q`` broadcasts against ``x``.
+
+    ``bf16`` / ``int8`` (kernel B3): x and q are quantized; only the dot
+    is reduced precision — bf16 products summed in float32 (each product
+    is exact in float32), int8 products summed in integers (exact) — then
+    max(nrm - 2 * ((xscale * qscale) * dot) + q2, 0) in that order, with
+    ``q2`` the squared norm of the float32 query."""
+    if mode == "exact":
         return torch.sum(torch.square(x - q), dim=-1)
+    if mode == "norm":
+        q2 = torch.sum(torch.square(q), dim=-1)
+        dots = torch.sum(x * q, dim=-1)
+        return torch.clamp(nrm - 2.0 * dots + q2, min=0.0)
+    if mode == "bf16":
+        dots = torch.sum(x.float() * q.float(), dim=-1)
+    elif mode == "int8":
+        dots = torch.sum(x.to(torch.int32) * q.to(torch.int32), dim=-1).to(torch.float32)
+    else:
+        raise ValueError(f"unknown distance mode {mode!r}")
+    return torch.clamp(nrm - 2.0 * ((xscale * qscale) * dots) + q2, min=0.0)
+
+
+def pool_d2(x: torch.Tensor, q: torch.Tensor, nrm, mode: str, scale=None):
+    """Squared distances of a (Q, ..., d) candidate pool to the float32
+    queries q (Q, d) in a distance mode; the quantized modes quantize q
+    as the kernels' wrappers do and take the slots' dequant ``scale``
+    (Q, ...)."""
+    shape = (q.shape[0],) + (1,) * (x.dim() - 2)
+    if mode not in QUANT_MODES:
+        return slot_d2(x, q.reshape(shape + (-1,)), nrm, mode)
+    qv, qs = quantize_query(q, mode)
     q2 = torch.sum(torch.square(q), dim=-1)
-    dots = torch.sum(x * q, dim=-1)
-    return torch.clamp(nrm - 2.0 * dots + q2, min=0.0)
+    return slot_d2(x, qv.reshape(shape + (-1,)), nrm, mode, q2=q2.reshape(shape),
+                   xscale=scale, qscale=qs.reshape(shape))
 
 
 def bins_from_pool(d2, hw, ids, halves, n: int, ks: int):
@@ -105,29 +157,31 @@ def take_fill(table: torch.Tensor, idx: torch.Tensor, fill):
 
 def fused_window_search_ref(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
                             ids_blocks, g, q, *, M: int, ks: int, n: int,
-                            mode: str = "norm"):
+                            mode: str = "norm", x_scale=None):
     """Twin of the fused window kernel: gather the selected blocks of the
     flattened (L*nb) axis (invalid ids >= L*nb gather +inf projections,
-    so they never admit), then bin the pool."""
+    so they never admit; quantized rows gather 0, their scales 1.0), then
+    bin the pool."""
     Qn, S = blk_idx.shape
     pb = take_fill(proj_blocks, blk_idx, torch.inf)  # (Q, S, B, K)
-    vb = take_fill(x_blocks, blk_idx, 0.0)  # (Q, S, B, d)
+    vb = take_fill(x_blocks, blk_idx, 0)  # (Q, S, B, d)
     nrm = take_fill(norm_blocks, blk_idx, torch.inf)  # (Q, S, B)
     ib = take_fill(ids_blocks, blk_idx, n)
+    xs = None if x_scale is None else take_fill(x_scale, blk_idx, 1.0)
     g_rep = torch.repeat_interleave(g, M, dim=1)  # (Q, S, K)
     hw = torch.abs(pb - g_rep[:, :, None, :]).amax(dim=-1)
-    d2 = slot_d2(vb, q[:, None, None, :], nrm, mode == "exact")
+    d2 = pool_d2(vb, q, nrm, mode, xs)
     return bins_from_pool(d2.reshape(Qn, -1), hw.reshape(Qn, -1),
                           ib.reshape(Qn, -1), halves, n, ks)
 
 
 def fused_cand_search_ref(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q,
-                          *, ks: int, n: int, mode: str = "norm"):
+                          *, ks: int, n: int, mode: str = "norm", cand_scale=None):
     """Twin of the fused gathered kernel over (Q, L, Ct, ·) candidates;
     +inf projections keep invalid slots out of every bin."""
     Qn = cand_proj.shape[0]
     hw = torch.abs(cand_proj - g[:, :, None, :]).amax(dim=-1)  # (Q, L, Ct)
-    d2 = slot_d2(cand_x, q[:, None, None, :], cand_norms, mode == "exact")
+    d2 = pool_d2(cand_x, q, cand_norms, mode, cand_scale)
     return bins_from_pool(d2.reshape(Qn, -1), hw.reshape(Qn, -1),
                           cand_ids.reshape(Qn, -1), halves, n, ks)
 
@@ -144,7 +198,7 @@ def candidate_verify_ref(cand_proj, cand_vecs, cand_ids, g, q, w: float, *,
     half = float(0.5 * torch.tensor(w, dtype=torch.float32))
     hw = torch.abs(cand_proj - g[:, None, :]).amax(dim=-1)
     inbox = (hw <= half) & (cand_ids < n)
-    d2 = slot_d2(cand_vecs, q[:, None, :], None, exact=True)
+    d2 = slot_d2(cand_vecs, q[:, None, :], None, "exact")
     return topk_rounds(torch.where(inbox, d2, torch.inf), cand_ids.to(torch.int32),
                        k, fill_id=n)
 

@@ -18,6 +18,12 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# one intra-op thread for the port's CPU ops: the test runner starts
+# several workers on a few cores, and torch's per-op thread pools then
+# oversubscribe the cores and slow the port's many small ops by ~10x
+torch.set_num_threads(1)
 
 from repro.core import DBLSHParams, brute_force, build, collision_prob, merge_dedup_topk
 from repro.core import (
@@ -29,10 +35,13 @@ from repro.core import (
     search_batch_fixed_dispatch,
     search_batch_fixed_ref,
 )
+from repro.core import quantize_blocks as _quantize_blocks
+from repro.core import updates
 from repro.core.query import _dedup_merge
 from repro.core.serve_search import _merge_dedup_topk_lexsort, _select_blocks
 from repro.data import make_clustered, normalize_scale
 from repro.kernels import candidate_verify, fused_cand_search, fused_window_search, window_verify
+from repro.kernels.ops import _quantize_query
 from repro.kernels.ref import (
     candidate_dist_ref,
     candidate_verify_ref,
@@ -71,6 +80,13 @@ __all__ = [
     "select_blocks",
     "fused_window",
     "fused_cand",
+    "quantize_blocks",
+    "quantize_query",
+    "quant_arrays",
+    "compact",
+    "onepass_quant_fixture",
+    "updates_fixture",
+    "updates",
 ]
 
 INDEX_FIELDS = (
@@ -102,6 +118,69 @@ def onepass_fixture(max_blocks: int = 32):
     )
     index = build(kb, data, params)
     return np.array(data), np.array(queries), index
+
+
+def onepass_quant_fixture(dtype: str):
+    """``tests/test_onepass_search.py::setup_quant``: the onepass fixture's
+    data indexed with ``quant_dtype=dtype`` under the same key."""
+    data, queries, _ = onepass_fixture()
+    params = DBLSHParams.derive(
+        n=2048, d=24, c=1.5, t=48, k=10, K=8, L=3,
+        inline_vectors=True, max_blocks=32, quant_dtype=dtype,
+    )
+    index = build(jax.random.split(jax.random.key(29))[1], jnp.asarray(data), params)
+    return data, queries, index
+
+
+def updates_fixture(**derive_kw):
+    """The data, inserts, queries and index of ``tests/test_updates.py``'s
+    fixture (n = 2000, d = 24, K = 8, L = 3; the gather layout unless
+    ``derive_kw`` says otherwise)."""
+    kd, kb = jax.random.split(jax.random.key(21))
+    allpts = make_clustered(kd, 3096, 24, n_clusters=12, spread=0.02)
+    data, extra, queries = allpts[:2000], allpts[2000:3064], allpts[3064:]
+    data, queries, scale = normalize_scale(data, queries)
+    extra = extra * scale
+    params = DBLSHParams.derive(n=2000, d=24, c=1.5, t=48, k=10, K=8, L=3, **derive_kw)
+    index = build(kb, data, params)
+    return np.array(data), np.array(extra), np.array(queries), index
+
+
+def quantize_blocks(data: np.ndarray, ids_blocks: np.ndarray, quant_dtype: str):
+    """The reference's ``index.quantize_blocks`` on numpy inputs: (qvec,
+    scale) as numpy arrays (bf16 as ``ml_dtypes.bfloat16``)."""
+    qb, qs = _quantize_blocks(jnp.asarray(data), jnp.asarray(ids_blocks), quant_dtype)
+    return np.asarray(qb), np.asarray(qs)
+
+
+def quantize_query(q: np.ndarray, mode: str):
+    """The reference's ``ops._quantize_query``: (qv, qs) as numpy."""
+    qv, qs = _quantize_query(jnp.asarray(q), mode)
+    return np.asarray(qv), np.asarray(qs)
+
+
+def compact(index, seed: int, integer_projections: bool = False):
+    """The reference's ``updates.compact`` under ``jax.random.key(seed)``;
+    with ``integer_projections`` its new hash functions are small integers
+    (numpy, from ``seed``), which keeps every projection of integer data
+    exact."""
+    if not integer_projections:
+        return updates.compact(index, jax.random.key(seed))
+    from repro.core import index as ridx
+
+    rng = np.random.default_rng(seed)
+    orig = ridx.hashing.sample_projections
+    ridx.hashing.sample_projections = lambda key, d, K, L: jnp.asarray(
+        rng.integers(-2, 3, (L, K, d)).astype(np.float32))
+    try:
+        return updates.compact(index, jax.random.key(seed))
+    finally:
+        ridx.hashing.sample_projections = orig
+
+
+def quant_arrays(index) -> dict:
+    """An index's quantized fields as numpy (bf16 as ``ml_dtypes.bfloat16``)."""
+    return {f: np.asarray(getattr(index, f)) for f in ("qvec_blocks", "qvec_scale")}
 
 
 def core_fixture():
@@ -160,9 +239,15 @@ def select_blocks(index, Q: np.ndarray, w: float):
     return np.asarray(blk), np.asarray(bhw), np.asarray(G)
 
 
-def fused_window(blk, halves, proj, vec, nrm, ids, g, q, *, M, ks, n, mode):
-    """Reference B1 in interpret mode, and its pool oracle."""
+def fused_window(blk, halves, proj, vec, nrm, ids, g, q, *, M, ks, n, mode, x_scale=None):
+    """Reference B1 in interpret mode, and its pool oracle.  In the
+    quantized modes ``vec`` holds the quantized blocks and the oracle is
+    None (``fused_search_ref`` takes a float32 pool)."""
     args = [jnp.asarray(a) for a in (blk, halves, proj, vec, nrm, ids, g, q)]
+    if x_scale is not None:
+        got = fused_window_search(*args, M=M, ks=ks, n=n, mode=mode, interpret=True,
+                                  x_scale=jnp.asarray(x_scale))
+        return tuple(map(np.asarray, got)), None
     got = fused_window_search(*args, M=M, ks=ks, n=n, mode=mode, interpret=True)
     d2, hw = window_dist_ref(args[0], args[2], args[3], args[4], args[6], args[7],
                              M, exact=(mode == "exact"))
@@ -172,9 +257,14 @@ def fused_window(blk, halves, proj, vec, nrm, ids, g, q, *, M, ks, n, mode):
     return tuple(map(np.asarray, got)), oracle
 
 
-def fused_cand(cp, cx, cn, ci, halves, g, q, *, ks, n, mode):
-    """Reference B2 in interpret mode, and its pool oracle."""
+def fused_cand(cp, cx, cn, ci, halves, g, q, *, ks, n, mode, cand_scale=None):
+    """Reference B2 in interpret mode, and its pool oracle (None in the
+    quantized modes, as :func:`fused_window`)."""
     args = [jnp.asarray(a) for a in (cp, cx, cn, ci, halves, g, q)]
+    if cand_scale is not None:
+        got = fused_cand_search(*args, ks=ks, n=n, mode=mode, tile_c=64, interpret=True,
+                                cand_scale=jnp.asarray(cand_scale))
+        return tuple(map(np.asarray, got)), None
     got = fused_cand_search(*args, ks=ks, n=n, mode=mode, tile_c=64, interpret=True)
     d2, hw = candidate_dist_ref(args[0], args[1], args[2], args[5], args[6],
                                 exact=(mode == "exact"))

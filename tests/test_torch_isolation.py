@@ -19,7 +19,7 @@ from repro_torch.core import (  # noqa: E402
     search_batch_fixed_ref,
 )
 from repro_torch.data import make_clustered  # noqa: E402
-from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.kernels import launches, mode_launches, reset_launches  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -109,12 +109,14 @@ def test_cpu_tensors_never_launch_kernels():
     gen = torch.Generator().manual_seed(1)
     data = torch.randn(256, 8, generator=gen)
     params = DBLSHParams.derive(n=256, d=8, k=4, K=3, L=2, block_size=16,
-                                inline_vectors=True)
+                                inline_vectors=True, quant_dtype="int8")
     index = build(data, params, generator=gen, device="cpu")
     reset_launches()
     for engine in ("kernel", "inline"):
         search_batch_fixed(index, data[:5], k=4, engine=engine, device="cpu")
+        search_batch_fixed(index, data[:5], k=4, engine=engine, dtype="int8", device="cpu")
         search_batch_fixed_ref(index, data[:5], k=4, engine=engine, device="cpu")
     assert set(launches) == {"fused_window_search", "fused_cand_search",
                              "window_verify", "candidate_verify"}
     assert not any(launches.values()), launches
+    assert not any(c for counts in mode_launches.values() for c in counts.values())

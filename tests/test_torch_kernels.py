@@ -22,6 +22,7 @@ from repro_torch.kernels import (  # noqa: E402
     launches,
     window_verify,
 )
+from repro_torch.kernels import mode_launches  # noqa: E402
 from repro_torch.kernels import ref as twin  # noqa: E402
 
 IMAX = np.iinfo(np.int32).max
@@ -222,12 +223,25 @@ def test_merge_dedup_topk_tie_overflow():
 
 
 def test_wrappers_reject_unported_modes_and_mixed_devices():
+    """Unknown modes, vectors of another dtype than the mode's, and a
+    dequant scale missing (quantized modes) or given (float32 modes)
+    raise before anything runs; so do operands on several devices."""
     args, n = _mk_window(0, 1, 2, 4, 8, 32, 4, 16, 2)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_window_search(*_t(args), M=4, ks=5, n=n, mode="bf16")
+    with pytest.raises(ValueError, match="fp16"):
+        fused_window_search(*_t(args), M=4, ks=5, n=n, mode="fp16")
+    with pytest.raises(TypeError, match="bf16"):
+        fused_window_search(*_t(args), M=4, ks=5, n=n, mode="bf16",
+                            x_scale=torch.ones(args[3].shape[:2]))
     cargs, n = _mk_cand(0, 1, 2, 16, 4, 8, 2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        fused_cand_search(*_t(cargs), ks=5, n=n, mode="int8")
+    cq = _t(cargs)
+    cq[1] = cq[1].to(torch.int8)
+    with pytest.raises(ValueError, match="cand_scale"):
+        fused_cand_search(*cq, ks=5, n=n, mode="int8")
+    with pytest.raises(ValueError, match="cand_scale"):
+        fused_cand_search(*_t(cargs), ks=5, n=n, cand_scale=torch.ones(cargs[2].shape))
+    with pytest.raises(TypeError, match="cand_scale"):
+        fused_cand_search(*cq, ks=5, n=n, mode="int8",
+                          cand_scale=torch.ones(cargs[2].shape, dtype=torch.float64))
     bad = _t(args)
     bad[0] = bad[0].to("meta")
     with pytest.raises(ValueError, match="devices"):
@@ -389,6 +403,69 @@ def test_cand_kernel_matches_twin(cuda, shape, steps, mode):
     torch.cuda.synchronize()
     assert launches["fused_cand_search"] == before + 1
     _assert_bins_equal(got, fused_cand_search(*_t(args), ks=ks, n=n, mode=mode))
+
+
+def _quantize_case(args, x_idx, mode):
+    """Quantize the float32 vectors args[x_idx] per slot (the reference's
+    quantize_blocks rule, through the port's twin of it) and return the
+    args with the quantized vectors, plus the slot scales."""
+    from repro_torch.core import quantize_blocks
+
+    x = torch.from_numpy(args[x_idx])
+    flat = x.reshape(-1, x.shape[-1])
+    qx, qs = quantize_blocks(flat, torch.arange(flat.shape[0], dtype=torch.int32), mode)
+    out = list(_t(args))
+    out[x_idx] = qx.reshape(x.shape)
+    return out, qs.reshape(x.shape[:-1])
+
+
+def _assert_b3_equal(got, want, mode):
+    """Against the twin run on the same CUDA tensors.  int8: every output
+    equal bit for bit (an exact integer dot, then the twin's rounded
+    dequant steps on the same q2); bf16: as the float32 modes (the dot is
+    summed in another order)."""
+    if mode == "int8":
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (a, b)
+    else:
+        _assert_bins_equal(got, [x.cpu() for x in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 4, 8, 32, 4, 16, 8), (2, 2, 4, 8, 32, 4, 24, 40),
+                                   (8, 3, 8, 8, 64, 12, 24, 40)])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_window_kernel_quantized_matches_twin(cuda, shape, mode):
+    """Kernel B3 in B1: test_kernels.py:280-357's shapes (invalid block
+    ids, steps 6) and the quantized shortlist width ks = 40."""
+    Q, L, M, nb, B, K, d, ks = shape
+    args, n = _mk_window(Q + d + ks, Q, L, M, nb, B, K, d, 6)
+    qargs, qs = _quantize_case(args, 3, mode)
+    kw = dict(M=M, ks=ks, n=n, mode=mode)
+    before = mode_launches["fused_window_search"][mode]
+    cargs = [a.to(cuda) for a in qargs]
+    got = fused_window_search(*cargs, x_scale=qs.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert mode_launches["fused_window_search"][mode] == before + 1
+    _assert_b3_equal(got, twin.fused_window_search_ref(*cargs, x_scale=qs.to(cuda), **kw), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 64, 4, 16, 20), (1, 2, 300, 12, 96, 40),
+                                   (4, 3, 320, 10, 24, 40)])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_cand_kernel_quantized_matches_twin(cuda, shape, mode):
+    """Kernel B3 in B2, ragged Ct included."""
+    Q, L, Ct, K, d, ks = shape
+    args, n = _mk_cand(Q * Ct + d + ks, Q, L, Ct, K, d, 6)
+    qargs, qs = _quantize_case(args, 1, mode)
+    kw = dict(ks=ks, n=n, mode=mode)
+    before = mode_launches["fused_cand_search"][mode]
+    cargs = [a.to(cuda) for a in qargs]
+    got = fused_cand_search(*cargs, cand_scale=qs.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert mode_launches["fused_cand_search"][mode] == before + 1
+    _assert_b3_equal(got, twin.fused_cand_search_ref(*cargs, cand_scale=qs.to(cuda), **kw), mode)
 
 
 @pytest.mark.cuda

@@ -156,11 +156,11 @@ def test_select_blocks_zero_tie_order():
 
 
 def test_unported_options_raise(setup):
-    """The quantized dtypes are still unported; the multi-pass oracle
-    takes only the port's engines, and 'inline' only on an index with
-    inline vectors."""
+    """A quantized dtype needs an index built with that quant_dtype (this
+    one has none); the multi-pass oracle takes only the port's engines,
+    and 'inline' only on an index with inline vectors."""
     _, queries, ref, index = setup
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="quant_dtype"):
         search_batch_fixed(index, queries, device="cpu", dtype="int8")
     with pytest.raises(ValueError, match="engine"):
         search_batch_fixed(index, queries, engine="jnp", device="cpu")

@@ -185,24 +185,39 @@ def _select_blocks(index: DBLSHIndex, G: torch.Tensor, w: float):
     return torch.stack(blks), torch.stack(bhws)
 
 
-def _gather_pool(index: DBLSHIndex, blk_q, G, Q, exact: bool):
-    """The ``torch`` engine's verify-once stage.
+def _gather_pool(index: DBLSHIndex, blk_q, G, Q, engine: str, exact: bool):
+    """Engine dispatch for the verify-once stage (the reference's pool
+    engines).
 
     blk_q: (Qn, S) flattened cross-table block ids (S = L·M, sentinel
     L·nb).  Returns (d2, hw): (Qn, C) squared distances and window
     halfwidths over the C = S·B candidate slots, table-major.  Slots are
-    not window-masked — the schedule masks hw per step."""
+    not window-masked — the schedule masks hw per step.  Engines:
+    'inline' runs kernel B4 on the blocks in place (needs
+    params.inline_vectors), 'kernel' kernel B5 on the gathered candidates,
+    'torch' plain PyTorch.  ``search_batch_fixed`` takes this stage only
+    on 'torch'; its kernel engines bin in B1/B2 instead."""
     p = index.params
     L, M, B, K = p.L, p.max_blocks, p.block_size, p.K
     nb, Qn = index.nb, Q.shape[0]
     proj_flat = index.proj_blocks.reshape(L * nb, B, K)
+    nrm_flat = index.norm_blocks.reshape(L * nb, B)
+    if engine == "inline":
+        if not p.inline_vectors:
+            raise ValueError("engine 'inline' needs an index built with inline_vectors=True")
+        return kernels.window_dist(blk_q, proj_flat, index.vec_blocks.reshape(L * nb, B, -1),
+                                   nrm_flat, G, Q, M=M, exact=exact)
     pb = take_fill(proj_flat, blk_q, torch.inf)  # (Qn, S, B, K)
     if p.inline_vectors:
         vb = take_fill(index.vec_blocks.reshape(L * nb, B, -1), blk_q, 0.0)
     else:
         ib = take_fill(index.ids_blocks.reshape(L * nb, B), blk_q, index.n)
         vb = take_fill(index.data, ib.reshape(Qn, -1), 0.0).reshape(Qn, L * M, B, -1)
-    nrm = take_fill(index.norm_blocks.reshape(L * nb, B), blk_q, torch.inf)
+    nrm = take_fill(nrm_flat, blk_q, torch.inf)
+    if engine == "kernel":
+        return kernels.candidate_dist(pb.reshape(Qn, L, M * B, K),
+                                      vb.reshape(Qn, L, M * B, -1),
+                                      nrm.reshape(Qn, L, M * B), G, Q, exact=exact)
     g_rep = torch.repeat_interleave(G, M, dim=1)  # (Qn, S, K)
     hw = torch.abs(pb - g_rep[:, :, None, :]).amax(dim=-1)  # (Qn, S, B)
     # per-slot multiply + last-axis reduce (not a batched matmul): the
@@ -399,7 +414,7 @@ def search_batch_fixed(
             cum_adm = torch.cumsum(bin_cnt, dim=1)
         else:
             ci = take_fill(index.ids_blocks.reshape(L * nb, B), blk_q, n).reshape(Qn, -1)
-            d2, hw = _gather_pool(index, blk_q, G, Q, exact)
+            d2, hw = _gather_pool(index, blk_q, G, Q, "torch", exact)
 
     c1_thr = None
     if termination is not None and termination.use_c1:

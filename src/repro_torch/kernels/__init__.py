@@ -3,22 +3,28 @@ PyTorch twins (``ref.py``).  Kernels are built at first CUDA use."""
 
 from . import ref
 from .ops import (
+    candidate_dist,
     candidate_verify,
     fused_cand_search,
     fused_window_search,
     launches,
     mode_launches,
+    pairwise_l2,
     reset_launches,
+    window_dist,
     window_verify,
 )
 
 __all__ = [
+    "candidate_dist",
     "candidate_verify",
     "fused_cand_search",
     "fused_window_search",
     "launches",
     "mode_launches",
+    "pairwise_l2",
     "reset_launches",
+    "window_dist",
     "window_verify",
     "ref",
 ]

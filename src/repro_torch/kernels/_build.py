@@ -22,7 +22,8 @@ from pathlib import Path
 __all__ = ["build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "fused_search.cu", _CSRC / "window_verify.cu")
+_SOURCES = tuple(_CSRC / f for f in ("fused_search.cu", "window_verify.cu", "dist.cu",
+                                      "pairwise_l2.cu"))
 _HEADERS = (_CSRC / "search_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "verify_smem_bytes": ((_I, _I, _I), ctypes.c_size_t),
     "window_verify_launch": ((_P,) * 6 + (_F,) + (_P,) * 2 + (_I,) * 8 + (_P,), _I),
     "candidate_verify_launch": ((_P,) * 5 + (_F,) + (_P,) * 2 + (_I,) * 6 + (_P,), _I),
+    "dist_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "window_dist_launch": ((_P,) * 9 + (_I,) * 9 + (_P,), _I),
+    "candidate_dist_launch": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+    "pairwise_l2_launch": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -18,9 +18,12 @@ import torch
 from . import _build
 from .ref import (
     QUANT_MODES,
+    candidate_dist_ref,
     candidate_verify_ref,
     fused_cand_search_ref,
     fused_window_search_ref,
+    pairwise_l2_ref,
+    window_dist_ref,
     window_verify_ref,
 )
 # the reference's ops._quantize_query: the kernels and their twins share it
@@ -31,6 +34,9 @@ __all__ = [
     "fused_cand_search",
     "window_verify",
     "candidate_verify",
+    "window_dist",
+    "candidate_dist",
+    "pairwise_l2",
     "launches",
     "mode_launches",
     "reset_launches",
@@ -44,12 +50,13 @@ _X_DTYPES = {"norm": torch.float32, "exact": torch.float32, "bf16": torch.bfloat
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fused_window_search": 0, "fused_cand_search": 0, "window_verify": 0,
-            "candidate_verify": 0}
+            "candidate_verify": 0, "window_dist": 0, "candidate_dist": 0, "pairwise_l2": 0}
 #: the fused kernels' launches per distance mode (their sum is ``launches``)
 mode_launches = {name: dict.fromkeys(_MODES, 0)
                  for name in ("fused_window_search", "fused_cand_search")}
 
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+_MAX_GRID_Y = 65_535  # a launch grid's largest y extent
 
 
 def reset_launches() -> None:
@@ -348,3 +355,138 @@ def candidate_verify(cand_proj, cand_vecs, cand_ids, g, q, w: float, *, n: int, 
         lambda lib, bd, bi, stream: lib.candidate_verify_launch(
             *map(_ptr, args), float(w), bd, bi, Qn, C, K, d, k, n, stream),
     )
+
+
+def _dist_launch(name: str, q: torch.Tensor, K: int, C: int, launch):
+    """Shared tail of the per-slot distance wrappers: the shared memory
+    guard, the (Q, C) outputs d2 and hw, q2 as the fused kernels' wrappers
+    compute it, the launch on the current stream, the count."""
+    lib = _build.load()
+    smem = lib.dist_smem_bytes(K, q.shape[-1])
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: K + d words of shared memory ({smem} bytes) exceed "
+                         f"{_MAX_SMEM}")
+    Qn = q.shape[0]
+    d2 = torch.empty((Qn, C), dtype=torch.float32, device=q.device)
+    hw = torch.empty((Qn, C), dtype=torch.float32, device=q.device)
+    if Qn == 0 or C == 0:
+        return d2, hw
+    q2 = torch.sum(torch.square(q), dim=-1)
+    with torch.cuda.device(q.device):
+        err = launch(lib, _ptr(q2), _ptr(d2), _ptr(hw),
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(lib, err, name)
+    launches[name] += 1
+    return d2, hw
+
+
+def window_dist(blk_idx, proj_blocks, vec_blocks, norm_blocks, g, q, *, M: int,
+                exact: bool = False):
+    """Per-slot distance and window halfwidth over the selected STR blocks,
+    read in place (kernel B4, the pool engine ``inline``).
+
+    Args:
+      blk_idx: (Q, S) int32 flattened block ids, S = L*M, table l's block
+        b stored as ``l*nb + b`` (ids outside [0, L*nb) are invalid slots).
+      proj_blocks: (L*nb, B, K) f32; vec_blocks: (L*nb, B, d) f32;
+      norm_blocks: (L*nb, B) f32 squared norms (+inf padded).
+      g: (Q, L, K) f32; q: (Q, d) f32; M: blocks per table (slot s belongs
+        to table s // M); exact: diff-form distances.
+
+    Returns: d2 (Q, S*B), hw (Q, S*B) float32 ``max_k |p_k - g_k|``; both
+    +inf on every slot of an invalid block, in both forms.
+    """
+    args = (blk_idx, proj_blocks, vec_blocks, norm_blocks, g, q)
+    cuda = _on_cuda(*args)
+    Qn, S = blk_idx.shape
+    lnb, B, K = proj_blocks.shape
+    d = vec_blocks.shape[-1]
+    L = g.shape[1]
+    if S != L * M:
+        raise ValueError(f"S={S} slots but L*M={L * M}")
+    f32 = torch.float32
+    _check("blk_idx", blk_idx, torch.int32, (Qn, S))
+    _check("proj_blocks", proj_blocks, f32, (lnb, B, K))
+    _check("vec_blocks", vec_blocks, f32, (lnb, B, d))
+    _check("norm_blocks", norm_blocks, f32, (lnb, B))
+    _check("g", g, f32, (Qn, L, K))
+    _check("q", q, f32, (Qn, d))
+    if not cuda:
+        return window_dist_ref(*args, M=M, exact=exact)
+    return _dist_launch(
+        "window_dist", q, K, S * B,
+        lambda lib, q2, d2, hw, stream: lib.window_dist_launch(
+            *map(_ptr, args), q2, d2, hw, Qn, S, M, lnb, B, K, d, L, int(exact), stream),
+    )
+
+
+def candidate_dist(cand_proj, cand_vecs, cand_norms, g, q, *, exact: bool = False):
+    """Per-slot distance and window halfwidth over pre-gathered candidates
+    (kernel B5, the pool engine ``kernel``).
+
+    Args:
+      cand_proj: (Q, L, Ct, K) f32 (+inf on invalid slots); cand_vecs:
+        (Q, L, Ct, d) f32; cand_norms: (Q, L, Ct) f32 squared norms (+inf
+        on invalid slots); g: (Q, L, K) f32; q: (Q, d) f32; exact:
+        diff-form distances.
+
+    Returns: d2 (Q, L*Ct), hw (Q, L*Ct) float32, table-major; hw = +inf on
+    a +inf projection, d2 = +inf on a +inf norm in norm form (the diff
+    form computes the slot's real distance).
+    """
+    args = (cand_proj, cand_vecs, cand_norms, g, q)
+    cuda = _on_cuda(*args)
+    Qn, L, Ct, K = cand_proj.shape
+    d = cand_vecs.shape[-1]
+    f32 = torch.float32
+    _check("cand_proj", cand_proj, f32, (Qn, L, Ct, K))
+    _check("cand_vecs", cand_vecs, f32, (Qn, L, Ct, d))
+    _check("cand_norms", cand_norms, f32, (Qn, L, Ct))
+    _check("g", g, f32, (Qn, L, K))
+    _check("q", q, f32, (Qn, d))
+    if not cuda:
+        return candidate_dist_ref(*args, exact=exact)
+    if Ct > _MAX_GRID_Y * 64:
+        raise ValueError(f"candidate_dist: Ct={Ct} slots per table exceed {_MAX_GRID_Y * 64}")
+    return _dist_launch(
+        "candidate_dist", q, K, L * Ct,
+        lambda lib, q2, d2, hw, stream: lib.candidate_dist_launch(
+            *map(_ptr, args), q2, d2, hw, Qn, L, Ct, K, d, int(exact), stream),
+    )
+
+
+def pairwise_l2(Q, X):
+    """Squared-L2 distance matrix ``max(||q||^2 - 2 q.x + ||x||^2, 0)``
+    (kernel B8).  The kernel's tile is its own constant: the reference's
+    TPU tile arguments have no counterpart.
+
+    Args:
+      Q: (nq, d), X: (nn, d), both float32 or both bf16, contiguous.
+
+    Returns: (nq, nn) float32; products in float32 (bf16 widened, never
+    TF32), the clamp at 0 applied once.
+    """
+    cuda = _on_cuda(Q, X)
+    if Q.dim() != 2 or X.dim() != 2:
+        raise ValueError(f"pairwise_l2 takes two matrices, got {Q.dim()}-d and {X.dim()}-d")
+    if Q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"Q: dtype {Q.dtype}, expected torch.float32 or torch.bfloat16")
+    nq, d = Q.shape
+    nn = X.shape[0]
+    _check("Q", Q, Q.dtype, (nq, d))
+    _check("X", X, Q.dtype, (nn, d))
+    if not cuda:
+        return pairwise_l2_ref(Q, X)
+    if nq > _MAX_GRID_Y * 64 or nn >= 2**31 - 64:
+        raise ValueError(f"pairwise_l2: nq={nq} or nn={nn} too large for one launch")
+    lib = _build.load()
+    out = torch.empty((nq, nn), dtype=torch.float32, device=Q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(Q.device):
+        err = lib.pairwise_l2_launch(_ptr(Q), _ptr(X), _ptr(out), nq, nn, d,
+                                     int(Q.dtype == torch.bfloat16),
+                                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(lib, err, "pairwise_l2")
+    launches["pairwise_l2"] += 1
+    return out

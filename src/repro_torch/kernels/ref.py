@@ -23,6 +23,9 @@ __all__ = [
     "fused_cand_search_ref",
     "window_verify_ref",
     "candidate_verify_ref",
+    "window_dist_ref",
+    "candidate_dist_ref",
+    "pairwise_l2_ref",
 ]
 
 IMAX = 2**31 - 1
@@ -218,3 +221,50 @@ def window_verify_ref(blk_idx, proj_blocks, vec_blocks, ids_blocks, g, q, w: flo
     vb = take_fill(vec_blocks, blk_idx, 0.0).reshape(Qn, M * B, -1)
     ib = take_fill(ids_blocks, blk_idx, n).reshape(Qn, M * B)
     return candidate_verify_ref(pb, vb, ib, g, q, w, n=n, k=k)
+
+
+def candidate_dist_ref(cand_proj, cand_vecs, cand_norms, g, q, *, exact: bool = False):
+    """Twin of the gathered distance kernel (B5): per slot of (Q, L, Ct)
+    candidates, the window halfwidth ``hw = max_k |p_k - g_k|`` against
+    its table's projection and the squared distance (norm form, or the
+    diff form with ``exact``), flattened table-major to (Q, L*Ct) each.
+    +inf projections give hw = +inf; +inf norms give d2 = +inf in norm
+    form, while the diff form computes the slot's real distance.
+
+    cand_proj: (Q, L, Ct, K); cand_vecs: (Q, L, Ct, d); cand_norms:
+    (Q, L, Ct); g: (Q, L, K); q: (Q, d)."""
+    Qn = cand_proj.shape[0]
+    hw = torch.abs(cand_proj - g[:, :, None, :]).amax(dim=-1)
+    d2 = pool_d2(cand_vecs, q, cand_norms, "exact" if exact else "norm")
+    return d2.reshape(Qn, -1), hw.reshape(Qn, -1)
+
+
+def window_dist_ref(blk_idx, proj_blocks, vec_blocks, norm_blocks, g, q, *, M: int,
+                    exact: bool = False):
+    """Twin of the in-place distance kernel (B4): gather the selected
+    blocks of the flattened (L*nb) axis, then :func:`candidate_dist_ref`
+    per slot, slot s belonging to table s // M.  A slot of an invalid
+    block (id outside [0, L*nb)) gets d2 = hw = +inf in both forms, as
+    the reference's kernel writes it (its jnp oracle leaves a finite
+    diff-form d2 there).  Returns d2, hw: (Q, S*B) each."""
+    Qn, S = blk_idx.shape
+    valid = (blk_idx >= 0) & (blk_idx < proj_blocks.shape[0])
+    pb = take_fill(proj_blocks, blk_idx, torch.inf)  # (Q, S, B, K)
+    vb = take_fill(vec_blocks, blk_idx, 0.0)  # (Q, S, B, d)
+    nrm = take_fill(norm_blocks, blk_idx, torch.inf)  # (Q, S, B)
+    g_rep = torch.repeat_interleave(g, M, dim=1)  # (Q, S, K)
+    hw = torch.abs(pb - g_rep[:, :, None, :]).amax(dim=-1)
+    d2 = pool_d2(vb, q, nrm, "exact" if exact else "norm")
+    d2 = torch.where(valid[:, :, None], d2, torch.inf)
+    return d2.reshape(Qn, -1), hw.reshape(Qn, -1)
+
+
+def pairwise_l2_ref(Q: torch.Tensor, X: torch.Tensor):
+    """Twin of the squared-distance matrix kernel (B8):
+    ``max(||q||^2 - 2 q.x + ||x||^2, 0)`` (nq, nn) in float32, computed on
+    the inputs widened to float32 (a bf16 x bf16 product is exact there).
+    Run it with TF32 off on the card."""
+    Q, X = Q.float(), X.float()
+    qn = torch.sum(torch.square(Q), dim=-1, keepdim=True)
+    xn = torch.sum(torch.square(X), dim=-1)
+    return torch.clamp(qn - 2.0 * (Q @ X.T) + xn, min=0.0)

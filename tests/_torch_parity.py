@@ -38,14 +38,23 @@ from repro.core import (
 from repro.core import quantize_blocks as _quantize_blocks
 from repro.core import updates
 from repro.core.query import _dedup_merge
-from repro.core.serve_search import _merge_dedup_topk_lexsort, _select_blocks
+from repro.core.serve_search import _gather_pool, _merge_dedup_topk_lexsort, _select_blocks
 from repro.data import make_clustered, normalize_scale
-from repro.kernels import candidate_verify, fused_cand_search, fused_window_search, window_verify
+from repro.kernels import (
+    candidate_dist,
+    candidate_verify,
+    fused_cand_search,
+    fused_window_search,
+    pairwise_l2,
+    window_dist,
+    window_verify,
+)
 from repro.kernels.ops import _quantize_query
 from repro.kernels.ref import (
     candidate_dist_ref,
     candidate_verify_ref,
     fused_search_ref,
+    pairwise_l2_ref,
     window_dist_ref,
     window_verify_ref,
 )
@@ -87,6 +96,10 @@ __all__ = [
     "onepass_quant_fixture",
     "updates_fixture",
     "updates",
+    "window_dist_both",
+    "candidate_dist_both",
+    "pairwise_l2_both",
+    "gather_pool",
 ]
 
 INDEX_FIELDS = (
@@ -305,3 +318,39 @@ def candidate_verify_both(cp, cv, ci, g, q, w: float, *, n: int, k: int):
     got = candidate_verify(*args, w, n=n, k=k, interpret=True)
     oracle = candidate_verify_ref(*args, w, n, k)
     return tuple(map(np.asarray, got)), tuple(map(np.asarray, oracle))
+
+
+def window_dist_both(blk, proj, vec, nrm, g, q, *, M: int, exact: bool):
+    """Reference B4 in interpret mode, and its jnp oracle: (d2, hw) each."""
+    args = [jnp.asarray(a) for a in (blk, proj, vec, nrm, g, q)]
+    got = window_dist(*args, M=M, exact=exact, interpret=True)
+    oracle = window_dist_ref(*args, M, exact=exact)
+    return tuple(map(np.asarray, got)), tuple(map(np.asarray, oracle))
+
+
+def candidate_dist_both(cp, cv, cn, g, q, *, exact: bool):
+    """Reference B5 in interpret mode, and its jnp oracle: (d2, hw) each."""
+    args = [jnp.asarray(a) for a in (cp, cv, cn, g, q)]
+    got = candidate_dist(*args, exact=exact, interpret=True)
+    oracle = candidate_dist_ref(*args, exact=exact)
+    return tuple(map(np.asarray, got)), tuple(map(np.asarray, oracle))
+
+
+def pairwise_l2_both(Q: np.ndarray, X: np.ndarray, dtype: str = "fp32", **tiles):
+    """Reference B8 in interpret mode (``tiles``: its tile_q/tile_n/tile_d)
+    on float32 inputs cast to ``dtype`` ('fp32' | 'bf16') in JAX, and its
+    jnp oracle on the cast inputs widened to float32."""
+    jt = {"fp32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    q, x = jnp.asarray(Q).astype(jt), jnp.asarray(X).astype(jt)
+    got = pairwise_l2(q, x, interpret=True, **tiles)
+    oracle = pairwise_l2_ref(q.astype(jnp.float32), x.astype(jnp.float32))
+    return np.asarray(got), np.asarray(oracle)
+
+
+def gather_pool(index, blk_q: np.ndarray, G: np.ndarray, Q: np.ndarray, engine: str,
+                exact: bool):
+    """The reference's ``serve_search._gather_pool`` (engine 'jnp',
+    'kernel' or 'inline'; Pallas in interpret mode): (d2, hw) (Qn, S*B)."""
+    d2, hw = _gather_pool(index, jnp.asarray(blk_q), jnp.asarray(G), jnp.asarray(Q),
+                          engine, exact, True)
+    return np.asarray(d2), np.asarray(hw)

@@ -19,7 +19,8 @@ from repro_torch.core import (  # noqa: E402
     search_batch_fixed_ref,
 )
 from repro_torch.data import make_clustered  # noqa: E402
-from repro_torch.kernels import launches, mode_launches, reset_launches  # noqa: E402
+from repro_torch.core.serve_search import _gather_pool  # noqa: E402
+from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -116,7 +117,16 @@ def test_cpu_tensors_never_launch_kernels():
         search_batch_fixed(index, data[:5], k=4, engine=engine, device="cpu")
         search_batch_fixed(index, data[:5], k=4, engine=engine, dtype="int8", device="cpu")
         search_batch_fixed_ref(index, data[:5], k=4, engine=engine, device="cpu")
+    # the pool engines' kernels B4/B5 and the distance matrix B8
+    p = index.params
+    G = torch.einsum("lkd,qd->qlk", index.proj_vecs, data[:5]).contiguous()
+    blk_q = torch.arange(5 * p.L * p.max_blocks, dtype=torch.int32).reshape(5, -1)
+    blk_q = blk_q % (p.L * index.nb + 1)
+    for engine in ("kernel", "inline"):
+        _gather_pool(index, blk_q, G, data[:5], engine, False)
+    pairwise_l2(data[:5], data)
     assert set(launches) == {"fused_window_search", "fused_cand_search",
-                             "window_verify", "candidate_verify"}
+                             "window_verify", "candidate_verify", "window_dist",
+                             "candidate_dist", "pairwise_l2"}
     assert not any(launches.values()), launches
     assert not any(c for counts in mode_launches.values() for c in counts.values())

@@ -2,7 +2,9 @@
 reference's Pallas kernels (interpret mode) and ``fused_search_ref``, the
 per-radius verify kernels' twins vs the reference's Pallas kernels and
 jnp oracles, the merge primitives vs the reference, and — on a CUDA
-device only — each kernel vs its twin.
+device only — each kernel vs its twin (B4/B5/B8 on the inputs of
+tests/test_torch_dist.py and tests/test_torch_pairwise_l2.py, which hold
+their twins against the reference).
 
 Inputs are made with numpy and handed to both packages.  The reference
 side comes in through the ``R`` fixture, so that the CUDA cases also run
@@ -16,14 +18,28 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import merge_dedup_topk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    candidate_dist,
     candidate_verify,
     fused_cand_search,
     fused_window_search,
     launches,
+    pairwise_l2,
+    window_dist,
     window_verify,
 )
 from repro_torch.kernels import mode_launches  # noqa: E402
 from repro_torch.kernels import ref as twin  # noqa: E402
+# B4/B5/B8 on the card take the inputs of their CPU tests, which hold the
+# twins against the reference
+from test_torch_dist import CAND_SHAPES as DIST_CAND_SHAPES  # noqa: E402
+from test_torch_dist import WINDOW_SHAPES as DIST_WINDOW_SHAPES  # noqa: E402
+from test_torch_dist import _all_invalid_case  # noqa: E402
+from test_torch_dist import _mk_cand as _mk_dist_cand  # noqa: E402
+from test_torch_dist import _mk_window as _mk_dist_window  # noqa: E402
+from test_torch_dist import _t as _td  # noqa: E402
+from test_torch_pairwise_l2 import SHAPES as L2_SHAPES  # noqa: E402
+from test_torch_pairwise_l2 import _inputs as _l2_inputs  # noqa: E402
+from test_torch_pairwise_l2 import _t as _tl2  # noqa: E402
 
 IMAX = np.iinfo(np.int32).max
 
@@ -528,3 +544,79 @@ def test_verify_kernels_reject_oversized_pool(cuda):
     args = _mk_verify_cand(1, 1, 30000, 4, 8, 100)
     with pytest.raises(ValueError, match="shared memory"):
         candidate_verify(*_t(args, cuda), 1.0, n=100, k=5)
+
+
+# ------------------------------------------- B4, B5 and B8 on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DIST_WINDOW_SHAPES + [(4, 5, 5, 40, 64, 10, 64)])
+@pytest.mark.parametrize("exact", [False, True])
+def test_window_dist_kernel_matches_twin(cuda, shape, exact):
+    """B4 vs its twin on the card: hw bit-equal, d2 where hw is finite to
+    rtol = atol = 1e-5 (the twin sums the dot in another order), both +inf
+    on every slot of an invalid block; one launch per call."""
+    Q, L, M, nb, B, K, d = shape
+    args = _td(_mk_dist_window(Q + M + nb + L, Q, L, M, nb, B, K, d), cuda)
+    before = launches["window_dist"]
+    got = window_dist(*args, M=M, exact=exact)
+    torch.cuda.synchronize()
+    assert launches["window_dist"] == before + 1
+    want = twin.window_dist_ref(*args, M=M, exact=exact)
+    assert torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[1])
+    torch.testing.assert_close(got[0][fin], want[0][fin], rtol=1e-5, atol=1e-5)
+    invalid = torch.repeat_interleave(args[0] >= L * nb, B, dim=1)
+    assert torch.isinf(got[0][invalid]).all() and torch.isinf(got[1][invalid]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DIST_CAND_SHAPES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_candidate_dist_kernel_matches_twin(cuda, shape, exact):
+    """B5 vs its twin on the card: hw bit-equal, d2 where hw is finite to
+    rtol = atol = 1e-5; one launch per call."""
+    Q, L, Ct, K, d = shape
+    args = _td(_mk_dist_cand(Q * Ct + d, Q, L, Ct, K, d), cuda)
+    before = launches["candidate_dist"]
+    got = candidate_dist(*args, exact=exact)
+    torch.cuda.synchronize()
+    assert launches["candidate_dist"] == before + 1
+    want = twin.candidate_dist_ref(*args, exact=exact)
+    assert torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[1])
+    torch.testing.assert_close(got[0][fin], want[0][fin], rtol=1e-5, atol=1e-5)
+    if not exact:
+        assert torch.isinf(got[0][torch.isinf(args[2]).reshape(Q, -1)]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_window_dist_kernel_all_invalid(cuda, exact):
+    args, M = _all_invalid_case()
+    d2, hw = window_dist(*_td(args, cuda), M=M, exact=exact)
+    assert torch.isinf(d2).all() and torch.isinf(hw).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", L2_SHAPES + [(1, 1, 1), (65, 129, 33), (3000, 70, 64)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_pairwise_l2_kernel_matches_twin(cuda, shape, dtype):
+    """B8 vs its twin on the card (TF32 off): the same tolerances as
+    against the reference, fp32 rtol 1e-4 / atol 1e-4 * d, bf16 the same
+    (both widen the same bf16 values and sum exact products in float32,
+    in other orders); one launch per call."""
+    nq, nn, d = shape
+    Q, X = _l2_inputs(nq + nn, nq, nn, d)
+    q, x = _tl2(Q, dtype, cuda), _tl2(X, dtype, cuda)
+    before = launches["pairwise_l2"]
+    got = pairwise_l2(q, x)
+    torch.cuda.synchronize()
+    assert launches["pairwise_l2"] == before + 1
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = twin.pairwise_l2_ref(q, x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)

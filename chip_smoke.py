@@ -19,8 +19,9 @@ Phases, each printing a line (with its seconds) when it passes:
                  all-masked cases, invalid block ids and M == nb; B4/B5 at
                  tests/test_kernels.py:122-176's shapes in both forms (hw
                  bit-equal, d2 within a norm-scaled atol, +inf on invalid
-                 blocks, the all-invalid case); B8 at :496-532's shapes in
-                 fp32 and bf16 (rtol 1e-4, atol 1e-4 x d);
+                 blocks, the all-invalid case); B8 at :496-532's shapes and
+                 at the edges of its bf16 tile in fp32 and bf16 (rtol 1e-4,
+                 atol 1e-4 x d), and bit-equal on integer inputs;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
                  queries, steps = 8, r0 = 0.5) through the one-pass
@@ -89,14 +90,17 @@ Phases, each printing a line (with its seconds) when it passes:
                  its twin at the shapes its path gives it, beside the least
                  time the card could take (B4/B5/B8 at both batches, with
                  the profiler's device time, and for B8 torch.cdist and
-                 Q @ X.T); median wall times of the one-pass search, the
+                 Q @ X.T, and the kernel / cdist ratio); median wall times
+                 of the one-pass search, the
                  multi-pass search, the one-pass search under
                  Termination() and the quantized searches, per engine, at
                  64 and 1024 queries;
 12. profile    — one one-pass, multi-pass, bf16 and int8 search per engine
-                 and batch under torch.profiler: device busy time against
+                 and batch under torch.profiler (profiled twice, the trace
+                 holding more device ops kept): device busy time against
                  the wall time, device ops, device time per one-pass stage
-                 (project, select, verify, merge), our kernels' device time
+                 (project, select, verify, merge: the device ops inside the
+                 stage's device-side range), our kernels' device time
                  per launch (B3 per mode) and the top device ops.
 
 Any failure raises, and the run exits non-zero.  The last three lines are
@@ -510,6 +514,25 @@ def device_us(torch, fn, kernel: str) -> float:
                if e.device_type.name == "CUDA" and kernel in e.name)
 
 
+def stage_ms(events, on_card, stages) -> dict:
+    """Device ms per stage: the device ops whose interval lies inside one
+    of the stage's device-side ranges (the profiler's annotation of each
+    ``record_function`` range on the card's timeline).  The host ranges'
+    ``device_time_total`` loses a stage's kernels where the profiler does
+    not nest their launches under the range; the ranges on the card's
+    timeline hold every op launched inside them, ctypes launches included.
+    A stage with no device-side range reads None."""
+    out = {}
+    for stage in stages:
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == stage and e.device_type.name == "CUDA"]
+        key = stage.split(".")[1]
+        out[key] = None if not spans else round(sum(
+            e.self_device_time_total for e in on_card
+            if any(s <= e.time_range.start and e.time_range.end <= t for s, t in spans)) / 1e3, 3)
+    return out
+
+
 def capture_calls(kernels, wrappers, name, fn):
     """Run ``fn`` with ``kernels.<name>`` wrapped so that the arguments of
     its last call are kept; returns them as (args, kwargs)."""
@@ -749,7 +772,12 @@ def main() -> int:
               "B4: an all-invalid selection gave a finite slot")
         n_cases += 1
     l2_err = {"fp32": 0.0, "bf16": 0.0}  # B8's largest |err| per input type
-    for nq, nn, d in ((8, 16, 8), (256, 512, 128), (100, 300, 65), (1, 1000, 960)):
+    # tests/test_kernels.py:496-532's shapes, then the bf16 tile's edges (as
+    # tests/test_torch_kernels.py::L2_EDGE_SHAPES): nq past one 128-row
+    # tile, nn % 4 != 0, d = 1, 33, 65 (element loads), 72 and 960
+    for nq, nn, d in ((8, 16, 8), (256, 512, 128), (100, 300, 65), (1, 1000, 960),
+                      (129, 4099, 72), (3000, 4099, 65), (129, 300, 1), (3000, 4096, 64),
+                      (129, 4099, 33), (129, 4099, 960)):
         Qa = torch.randn((nq, d), generator=dist_gen, device=dev)
         Xa = torch.randn((nn, d), generator=dist_gen, device=dev)
         for dt, tt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -760,12 +788,24 @@ def main() -> int:
                   f"B8 {dt} ({nq}, {nn}, {d}): differs from the twin by {err}")
             l2_err[dt] = max(l2_err[dt], err)
             n_cases += 1
+    # integers in -4..4, d <= 64: every sum is exact in float32, so B8 equals
+    # its twin bit for bit (in bf16 a fragment mix-up shows as a wrong value)
+    for nq, nn, d in ((129, 4099, 64), (3000, 1000, 33), (65, 4096, 1), (300, 515, 56)):
+        Qa, Xa = (torch.randint(-4, 5, (m, d), generator=dist_gen, device=dev).float()
+                  for m in (nq, nn))
+        for dt, tt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qa, xa = Qa.to(tt), Xa.to(tt)
+            got, want = wrappers["pairwise_l2"](qa, xa), twins["pairwise_l2"](qa, xa)
+            check(torch.equal(got, want), f"B8 {dt} ({nq}, {nn}, {d}) on integers: not "
+                  f"bit-equal to the twin (max |err| {float((got - want).abs().max())})")
+            n_cases += 1
     max_err["pairwise_l2"] = max(l2_err.values())
     print(f"[twins] ok: {n_cases} kernel-vs-twin cases agree (counts equal, "
           f"rtol = atol = 1e-5, id sets per bin / per query; B3 bf16: bin id overlap "
           f">= 0.98; B4/B5: hw bit-equal, d2 rtol 1e-5 + atol {NORM_ATOL} x the norms "
           f"where hw is finite, +inf on invalid blocks; B8 fp32/bf16: rtol 1e-4, "
-          f"atol 1e-4 x d); max |err| {max_err}; B3 outputs bit-equal to the twin: "
+          f"atol 1e-4 x d, and bit-equal on integer inputs); max |err| {max_err}; B3 "
+          f"outputs bit-equal to the twin: "
           f"{json.dumps({k_: v for k_, v in b3_bits.items()})} ({phase_s():.1f} s)", flush=True)
 
     # -------------------------------------------------------- 3. main path
@@ -1389,7 +1429,8 @@ def main() -> int:
             library_ms = cuda_ms(torch, lambda: torch.cdist(
                 *a, compute_mode="use_mm_for_euclid_dist"), iters=20)
             mm_ms = cuda_ms(torch, lambda: a[0] @ a[1].T, iters=20)
-            lib_note = f", cdist {library_ms:.4f} ms, Q @ X.T alone {mm_ms:.4f} ms"
+            lib_note = (f", cdist {library_ms:.4f} ms (kernel / cdist {ms / library_ms:.3f}),"
+                        f" Q @ X.T alone {mm_ms:.4f} ms")
         dt_name = name.split("[")[-1].split("]")[0] if "[" in name else wrapper
         records.append({
             "name": name, "route": "cuda", "source": KERNELS[wrapper][0],
@@ -1440,27 +1481,39 @@ def main() -> int:
     stages = ("dblsh.project", "dblsh.select", "dblsh.verify", "dblsh.merge")
     kernel_re = re.compile(r"(\w+)_kernel(?:<(?:\(int\))?(\d)>)?")
     mode_names = ("norm", "exact", *QUANT)
+    unattributed = []  # (row, stage): a stage that ran but reads no device time
+    lost = []  # rows whose two traces held different numbers of device ops
     for path in ("onepass", "multipass", *QUANT):
         for Qn, Qb in ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k)):
             for engine in engines:
                 searches[path](Qb, engine)
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    searches[path](Qb, engine)
-                    torch.cuda.synchronize()
-                    prof_ms = (time.perf_counter() - t0) * 1e3
-                # kernel events only: the stage annotations also appear as
-                # device-side ranges, which span time rather than fill it
-                events = prof.events()
-                on_card = [e for e in events
-                           if e.device_type.name == "CUDA" and e.name not in stages]
-                busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-                span_ms = {}
-                for e in events:  # host-side stage ranges: their kernels' device time
-                    if e.name in stages and e.device_type.name == "CPU":
-                        key = e.name.split(".")[1]
-                        span_ms[key] = round(span_ms.get(key, 0.0) + e.device_time_total / 1e3, 3)
+                # two profiled calls: a trace can lose the device records of
+                # a run of kernels (its op count and busy time drop
+                # together), so the one holding more device ops is kept
+                traces = []
+                for _ in range(2):
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        searches[path](Qb, engine)
+                        torch.cuda.synchronize()
+                        prof_ms = (time.perf_counter() - t0) * 1e3
+                    # kernel events only: the stage annotations also appear
+                    # as device-side ranges, which span time rather than fill it
+                    events = prof.events()
+                    on_card = [e for e in events
+                               if e.device_type.name == "CUDA" and e.name not in stages]
+                    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+                    traces.append((len(on_card), busy_ms, prof_ms, events, on_card))
+                row = f"{path} Q={Qn} {engine}"
+                if traces[0][0] != traces[1][0]:
+                    lost.append(f"{row}: {traces[0][0]} / {traces[1][0]} ops, "
+                                f"{traces[0][1]:.3f} / {traces[1][1]:.3f} busy ms")
+                _, busy_ms, prof_ms, events, on_card = max(traces, key=lambda tr: tr[0])
+                span_ms = stage_ms(events, on_card, stages)
+                unattributed += [(row, key) for key in ("select", "verify", "merge")
+                                 if not span_ms[key]]
                 by_name = {}
                 for e in on_card:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1e3
@@ -1478,12 +1531,15 @@ def main() -> int:
                     n_, t_ = ours.get(name, (0, 0.0))
                     ours[name] = (n_ + 1, t_ + e.self_device_time_total / 1e3)
                 ours = {name: f"{n_} x {t_ / n_ * 1e3:.1f} us" for name, (n_, t_) in ours.items()}
-                print(f"[profile] {path} Q={Qn} {engine}: device busy {busy_ms:.3f} ms of "
+                print(f"[profile] {row}: device busy {busy_ms:.3f} ms of "
                       f"{prof_ms:.3f} ms wall of this call (idle {1 - busy_ms / prof_ms:.3f}; "
                       f"median unprofiled wall {wall[f'{path}:{engine}@{Qn}']:.3f} ms), "
                       f"{len(on_card)} device ops; per stage {span_ms}; our kernels "
                       f"{ours}; top: "
                       + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top), flush=True)
+    check(not unattributed, f"profile: stages that ran read no device time: {unattributed}")
+    print(f"[profile] rows whose two traces differ in device ops (the larger kept): "
+          f"{lost or 'none'}", flush=True)
     print(f"[profile] ok ({phase_s():.1f} s); the whole run took "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -463,8 +463,9 @@ def pairwise_l2(Q, X):
     Args:
       Q: (nq, d), X: (nn, d), both float32 or both bf16, contiguous.
 
-    Returns: (nq, nn) float32; products in float32 (bf16 widened, never
-    TF32), the clamp at 0 applied once.
+    Returns: (nq, nn) float32; bf16 products on the tensor cores, float32
+    products on the FMA units (never TF32), summed in float32, the clamp at
+    0 applied once.
     """
     cuda = _on_cuda(Q, X)
     if Q.dim() != 2 or X.dim() != 2:
@@ -477,15 +478,18 @@ def pairwise_l2(Q, X):
     _check("X", X, Q.dtype, (nn, d))
     if not cuda:
         return pairwise_l2_ref(Q, X)
-    if nq > _MAX_GRID_Y * 64 or nn >= 2**31 - 64:
+    # the grid's y extent counts row tiles of Q (float32, 64 rows) or of X
+    # (bf16, 128 rows); its x extent the others
+    bf16 = Q.dtype == torch.bfloat16
+    y_rows, y_tile = (nn, 128) if bf16 else (nq, 64)
+    if y_rows > _MAX_GRID_Y * y_tile or max(nq, nn) >= 2**31 - 128:
         raise ValueError(f"pairwise_l2: nq={nq} or nn={nn} too large for one launch")
     lib = _build.load()
     out = torch.empty((nq, nn), dtype=torch.float32, device=Q.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(Q.device):
-        err = lib.pairwise_l2_launch(_ptr(Q), _ptr(X), _ptr(out), nq, nn, d,
-                                     int(Q.dtype == torch.bfloat16),
+        err = lib.pairwise_l2_launch(_ptr(Q), _ptr(X), _ptr(out), nq, nn, d, int(bf16),
                                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _raise_on(lib, err, "pairwise_l2")
     launches["pairwise_l2"] += 1

@@ -38,6 +38,7 @@ from test_torch_dist import _mk_cand as _mk_dist_cand  # noqa: E402
 from test_torch_dist import _mk_window as _mk_dist_window  # noqa: E402
 from test_torch_dist import _t as _td  # noqa: E402
 from test_torch_pairwise_l2 import SHAPES as L2_SHAPES  # noqa: E402
+from test_torch_pairwise_l2 import TORCH_DTYPE as TORCH_L2_DTYPE  # noqa: E402
 from test_torch_pairwise_l2 import _inputs as _l2_inputs  # noqa: E402
 from test_torch_pairwise_l2 import _t as _tl2  # noqa: E402
 
@@ -598,14 +599,34 @@ def test_window_dist_kernel_all_invalid(cuda, exact):
     assert torch.isinf(d2).all() and torch.isinf(hw).all()
 
 
+def _pairwise_l2_twin(q, x):
+    """B8's twin on the card, TF32 off."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return twin.pairwise_l2_ref(q, x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+# the edges of the bf16 kernel's tile (128 x 128, d in steps of 64): nq
+# above one row tile and ragged (129, 3000); nn % 4 != 0 (4099: scalar
+# stores on rows not 16-byte aligned); d = 1, 33, 65 (element loads), 72
+# (16-byte cp.async, not a multiple of 64) and 960 (15 steps)
+L2_EDGE_SHAPES = [(129, 4099, 72), (3000, 4099, 65), (129, 300, 1), (3000, 4096, 64),
+                  (129, 4099, 33), (129, 4099, 960)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", L2_SHAPES + [(1, 1, 1), (65, 129, 33), (3000, 70, 64)])
+@pytest.mark.parametrize("shape", L2_SHAPES + [(1, 1, 1), (65, 129, 33), (3000, 70, 64)]
+                         + L2_EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_pairwise_l2_kernel_matches_twin(cuda, shape, dtype):
     """B8 vs its twin on the card (TF32 off): the same tolerances as
     against the reference, fp32 rtol 1e-4 / atol 1e-4 * d, bf16 the same
-    (both widen the same bf16 values and sum exact products in float32,
-    in other orders); one launch per call."""
+    (both sum the exact products of the same bf16 values in float32, in
+    other orders: the tensor cores' against the twin's widened matmul);
+    one launch per call."""
     nq, nn, d = shape
     Q, X = _l2_inputs(nq + nn, nq, nn, d)
     q, x = _tl2(Q, dtype, cuda), _tl2(X, dtype, cuda)
@@ -613,10 +634,53 @@ def test_pairwise_l2_kernel_matches_twin(cuda, shape, dtype):
     got = pairwise_l2(q, x)
     torch.cuda.synchronize()
     assert launches["pairwise_l2"] == before + 1
-    allow = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        want = twin.pairwise_l2_ref(q, x)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
+    torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(129, 4099, 64), (3000, 1000, 33), (65, 4096, 1),
+                                   (300, 515, 56)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_pairwise_l2_kernel_bit_equal_on_integers(cuda, shape, dtype):
+    """Inputs in -4..4 with d <= 64: every product, partial sum and norm
+    is an integer below 2^24, exact in float32 in any order, so the kernel
+    equals its twin bit for bit; in bf16 a mix-up of the ldmatrix / mma
+    fragment indices shows as a wrong value, not as a tolerance miss."""
+    nq, nn, d = shape
+    rng = np.random.default_rng(nq * 31 + nn + d)
+    q, x = (torch.from_numpy(rng.integers(-4, 5, (m, d)).astype(np.float32))
+            .to(cuda, TORCH_L2_DTYPE[dtype]) for m in (nq, nn))
+    got = pairwise_l2(q, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _pairwise_l2_twin(q, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 4099, 64), (129, 300, 960)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_pairwise_l2_kernel_deterministic(cuda, shape, dtype):
+    """Two calls on the same inputs give bit-equal matrices."""
+    nq, nn, d = shape
+    Q, X = _l2_inputs(nq * 7 + nn, nq, nn, d)
+    q, x = _tl2(Q, dtype, cuda), _tl2(X, dtype, cuda)
+    first = pairwise_l2(q, x)
+    assert torch.equal(pairwise_l2(q, x), first)
+
+
+@pytest.mark.cuda
+def test_pairwise_l2_kernel_grid_limits(cuda):
+    """The grid's y extent counts Q's 64-row tiles in float32 and X's
+    128-row tiles in bf16: one row past either limit raises, and bf16 takes
+    a Q past float32's limit."""
+    ymax = 65_535
+    with pytest.raises(ValueError, match="too large"):
+        pairwise_l2(torch.zeros((ymax * 64 + 1, 1), device=cuda), torch.zeros((3, 1), device=cuda))
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="too large"):
+        pairwise_l2(torch.zeros((3, 8), device=cuda, dtype=bf),
+                    torch.zeros((ymax * 128 + 1, 8), device=cuda, dtype=bf))
+    Q, X = _l2_inputs(5, ymax * 64 + 1, 3, 8)
+    q, x = _tl2(Q, "bf16", cuda), _tl2(X, "bf16", cuda)
+    got = pairwise_l2(q, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * 8)

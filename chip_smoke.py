@@ -20,8 +20,10 @@ Phases, each printing a line (with its seconds) when it passes:
                  tests/test_kernels.py:122-176's shapes in both forms (hw
                  bit-equal, d2 within a norm-scaled atol, +inf on invalid
                  blocks, the all-invalid case); B8 at :496-532's shapes and
-                 at the edges of its bf16 tile in fp32 and bf16 (rtol 1e-4,
-                 atol 1e-4 x d), and bit-equal on integer inputs;
+                 at the edges of its bf16 and fp32 tiles in fp32 and bf16
+                 (rtol 1e-4, atol 1e-4 x d), on bases not 16-byte aligned
+                 (bit-equal to the aligned call), and bit-equal on integer
+                 inputs;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
                  queries, steps = 8, r0 = 0.5) through the one-pass
@@ -90,7 +92,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  its twin at the shapes its path gives it, beside the least
                  time the card could take (B4/B5/B8 at both batches, with
                  the profiler's device time, and for B8 torch.cdist and
-                 Q @ X.T, and the kernel / cdist ratio); median wall times
+                 Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
+                 ratios); median wall times
                  of the one-pass search, the
                  multi-pass search, the one-pass search under
                  Termination() and the quantized searches, per engine, at
@@ -556,6 +559,15 @@ def idsets(torch, d, i):
     return [set(i[q][torch.isfinite(d[q])].tolist()) for q in range(d.shape[0])]
 
 
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose base lies one element into its
+    buffer: not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def bit_equal(torch, a, b) -> bool:
     return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
@@ -774,10 +786,16 @@ def main() -> int:
     l2_err = {"fp32": 0.0, "bf16": 0.0}  # B8's largest |err| per input type
     # tests/test_kernels.py:496-532's shapes, then the bf16 tile's edges (as
     # tests/test_torch_kernels.py::L2_EDGE_SHAPES): nq past one 128-row
-    # tile, nn % 4 != 0, d = 1, 33, 65 (element loads), 72 and 960
-    for nq, nn, d in ((8, 16, 8), (256, 512, 128), (100, 300, 65), (1, 1000, 960),
-                      (129, 4099, 72), (3000, 4099, 65), (129, 300, 1), (3000, 4096, 64),
-                      (129, 4099, 33), (129, 4099, 960)):
+    # tile, nn % 4 != 0, d = 1, 33, 65 (element loads), 72 and 960; then the
+    # float32 tiles' (L2_FP32_EDGE_SHAPES): nq around one warp's 64 rows (the
+    # 64 x 256 tile up to nq = 64) and one 128-row tile, d = 1, 3, 33, 65
+    # and 960 (steps of 16) in both tiles
+    l2_shapes = [(8, 16, 8), (256, 512, 128), (100, 300, 65), (1, 1000, 960),
+                 (129, 4099, 72), (3000, 4099, 65), (129, 300, 1), (3000, 4096, 64),
+                 (129, 4099, 33), (129, 4099, 960)]
+    l2_shapes += [(nq, 4099, 64) for nq in (63, 64, 65, 127, 128, 129)]
+    l2_shapes += [(nq, 1030, d) for nq in (64, 65) for d in (1, 3, 33, 65, 960)]
+    for nq, nn, d in l2_shapes:
         Qa = torch.randn((nq, d), generator=dist_gen, device=dev)
         Xa = torch.randn((nn, d), generator=dist_gen, device=dev)
         for dt, tt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -788,9 +806,31 @@ def main() -> int:
                   f"B8 {dt} ({nq}, {nn}, {d}): differs from the twin by {err}")
             l2_err[dt] = max(l2_err[dt], err)
             n_cases += 1
+    # bases not 16-byte aligned (contiguous views one element into their
+    # buffers, as tests/test_torch_kernels.py::test_pairwise_l2_kernel_misaligned_base):
+    # the element loads, bit-equal to the aligned call and close to the twin
+    Xa = torch.randn((1030, 64), generator=dist_gen, device=dev)
+    for nq in (64, 129):
+        Qa = torch.randn((nq, 64), generator=dist_gen, device=dev)
+        for dt, tt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qa, xa = Qa.to(tt), Xa.to(tt)
+            aligned_out = wrappers["pairwise_l2"](qa, xa)
+            for mis_q, mis_x in ((True, False), (False, True), (True, True)):
+                qm, xm = (misaligned(torch, a) if m else a
+                          for a, m in ((qa, mis_q), (xa, mis_x)))
+                got, want = wrappers["pairwise_l2"](qm, xm), twins["pairwise_l2"](qa, xa)
+                err = float((got - want).abs().max())
+                check(torch.equal(got, aligned_out) and
+                      torch.allclose(got, want, rtol=1e-4, atol=1e-4 * 64),
+                      f"B8 {dt} ({nq}, 1030, 64) with a misaligned base (Q {mis_q}, X "
+                      f"{mis_x}): not bit-equal to the aligned call, or differs from the "
+                      f"twin by {err}")
+                l2_err[dt] = max(l2_err[dt], err)
+                n_cases += 1
     # integers in -4..4, d <= 64: every sum is exact in float32, so B8 equals
     # its twin bit for bit (in bf16 a fragment mix-up shows as a wrong value)
-    for nq, nn, d in ((129, 4099, 64), (3000, 1000, 33), (65, 4096, 1), (300, 515, 56)):
+    for nq, nn, d in ((129, 4099, 64), (3000, 1000, 33), (65, 4096, 1), (300, 515, 56),
+                      (63, 4099, 64), (127, 1030, 3)):
         Qa, Xa = (torch.randint(-4, 5, (m, d), generator=dist_gen, device=dev).float()
                   for m in (nq, nn))
         for dt, tt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1430,7 +1470,7 @@ def main() -> int:
                 *a, compute_mode="use_mm_for_euclid_dist"), iters=20)
             mm_ms = cuda_ms(torch, lambda: a[0] @ a[1].T, iters=20)
             lib_note = (f", cdist {library_ms:.4f} ms (kernel / cdist {ms / library_ms:.3f}),"
-                        f" Q @ X.T alone {mm_ms:.4f} ms")
+                        f" Q @ X.T alone {mm_ms:.4f} ms (kernel / Q @ X.T {ms / mm_ms:.3f})")
         dt_name = name.split("[")[-1].split("]")[0] if "[" in name else wrapper
         records.append({
             "name": name, "route": "cuda", "source": KERNELS[wrapper][0],

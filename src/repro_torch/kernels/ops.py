@@ -478,11 +478,10 @@ def pairwise_l2(Q, X):
     _check("X", X, Q.dtype, (nn, d))
     if not cuda:
         return pairwise_l2_ref(Q, X)
-    # the grid's y extent counts row tiles of Q (float32, 64 rows) or of X
-    # (bf16, 128 rows); its x extent the others
+    # the grid's y extent counts X's row tiles (128 rows, or 256 in float32
+    # with nq <= 64), its x extent Q's: one limit for both input types
     bf16 = Q.dtype == torch.bfloat16
-    y_rows, y_tile = (nn, 128) if bf16 else (nq, 64)
-    if y_rows > _MAX_GRID_Y * y_tile or max(nq, nn) >= 2**31 - 128:
+    if nn > _MAX_GRID_Y * 128 or max(nq, nn) >= 2**31 - 128:
         raise ValueError(f"pairwise_l2: nq={nq} or nn={nn} too large for one launch")
     lib = _build.load()
     out = torch.empty((nq, nn), dtype=torch.float32, device=Q.device)

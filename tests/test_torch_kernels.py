@@ -615,11 +615,18 @@ def _pairwise_l2_twin(q, x):
 # (16-byte cp.async, not a multiple of 64) and 960 (15 steps)
 L2_EDGE_SHAPES = [(129, 4099, 72), (3000, 4099, 65), (129, 300, 1), (3000, 4096, 64),
                   (129, 4099, 33), (129, 4099, 960)]
+# the edges of the float32 kernel's tiles (64 x 256 for nq <= 64, else
+# 128 x 128; d in steps of 16): nq on both sides of one warp's 64 rows
+# (63..65: the tile changes, the rows past nq are skipped per warp) and of
+# one row tile (127..129), with nn % 4 != 0; d = 1, 3, 33, 65 (element
+# loads) and 960 (60 steps), in both tiles
+L2_FP32_EDGE_SHAPES = ([(nq, 4099, 64) for nq in (63, 64, 65, 127, 128, 129)]
+                       + [(nq, 1030, d) for nq in (64, 65) for d in (1, 3, 33, 65, 960)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", L2_SHAPES + [(1, 1, 1), (65, 129, 33), (3000, 70, 64)]
-                         + L2_EDGE_SHAPES)
+                         + L2_EDGE_SHAPES + L2_FP32_EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_pairwise_l2_kernel_matches_twin(cuda, shape, dtype):
     """B8 vs its twin on the card (TF32 off): the same tolerances as
@@ -639,7 +646,7 @@ def test_pairwise_l2_kernel_matches_twin(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(129, 4099, 64), (3000, 1000, 33), (65, 4096, 1),
-                                   (300, 515, 56)])
+                                   (300, 515, 56), (63, 4099, 64), (127, 1030, 3)])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_pairwise_l2_kernel_bit_equal_on_integers(cuda, shape, dtype):
     """Inputs in -4..4 with d <= 64: every product, partial sum and norm
@@ -667,20 +674,50 @@ def test_pairwise_l2_kernel_deterministic(cuda, shape, dtype):
     assert torch.equal(pairwise_l2(q, x), first)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element into its
+    buffer: not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["Q", "X", "both"])
+@pytest.mark.parametrize("nq", [64, 129])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_pairwise_l2_kernel_misaligned_base(cuda, which, nq, dtype):
+    """An operand whose base pointer is not 16-byte aligned takes the
+    element loads: the same matrix as from aligned copies, bit for bit (the
+    same values staged, summed in the same order), and within the twin's
+    tolerance; in both float32 tiles."""
+    nn, d = 1030, 64
+    Q, X = _l2_inputs(nq * 3 + nn, nq, nn, d)
+    q, x = _tl2(Q, dtype, cuda), _tl2(X, dtype, cuda)
+    qm = _misaligned(q) if which in ("Q", "both") else q
+    xm = _misaligned(x) if which in ("X", "both") else x
+    assert (qm.data_ptr() % 16 != 0) or (xm.data_ptr() % 16 != 0)
+    got = pairwise_l2(qm, xm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pairwise_l2(q, x))
+    torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * d)
+
+
 @pytest.mark.cuda
 def test_pairwise_l2_kernel_grid_limits(cuda):
-    """The grid's y extent counts Q's 64-row tiles in float32 and X's
-    128-row tiles in bf16: one row past either limit raises, and bf16 takes
-    a Q past float32's limit."""
+    """The grid's y extent counts X's 128-row tiles in both input types:
+    one X row past the limit raises in float32 and in bf16, and a Q past
+    the float32 kernel's former limit (65,535 tiles of 64 rows) is taken
+    in both."""
     ymax = 65_535
-    with pytest.raises(ValueError, match="too large"):
-        pairwise_l2(torch.zeros((ymax * 64 + 1, 1), device=cuda), torch.zeros((3, 1), device=cuda))
-    bf = torch.bfloat16
-    with pytest.raises(ValueError, match="too large"):
-        pairwise_l2(torch.zeros((3, 8), device=cuda, dtype=bf),
-                    torch.zeros((ymax * 128 + 1, 8), device=cuda, dtype=bf))
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="too large"):
+            pairwise_l2(torch.zeros((3, 8), device=cuda, dtype=dt),
+                        torch.zeros((ymax * 128 + 1, 8), device=cuda, dtype=dt))
     Q, X = _l2_inputs(5, ymax * 64 + 1, 3, 8)
-    q, x = _tl2(Q, "bf16", cuda), _tl2(X, "bf16", cuda)
-    got = pairwise_l2(q, x)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * 8)
+    for dtype in ("fp32", "bf16"):
+        q, x = _tl2(Q, dtype, cuda), _tl2(X, dtype, cuda)
+        got = pairwise_l2(q, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * 8)

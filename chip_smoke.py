@@ -61,7 +61,7 @@ Phases, each printing a line (with its seconds) when it passes:
                  contract against a float64 diff-form oracle, stats equal
                  to fp32 where the ids are; Termination() stats against
                  fp32; each B3 instantiation against its twin on the
-                 path's own inputs;
+                 path's own inputs at 64 and 1024 queries;
 8. updates     — on the int8 index: insert 10,000 new points (each ~0.5
                  from a random existing one), delete
                  10,000 ids (each query's true nearest neighbour among
@@ -89,9 +89,10 @@ Phases, each printing a line (with its seconds) when it passes:
                  top-10 ids equal to ``brute_force``'s up to near-ties at
                  the 10th distance, the bf16 id overlap printed;
 11. times      — median CUDA-event times of each kernel (B3 per mode) and
-                 its twin at the shapes its path gives it, beside the least
-                 time the card could take (B4/B5/B8 at both batches, with
-                 the profiler's device time, and for B8 torch.cdist and
+                 its twin at the shapes its path gives it, with the
+                 profiler's device time, beside the least time the card
+                 could take (B1/B2/B3 and B4/B5/B8 at both batches, B6/B7
+                 at 64 queries; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
                  ratios); median wall times
                  of the one-pass search, the
@@ -114,6 +115,7 @@ JSON record, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -503,18 +505,24 @@ def work(torch, name: str, a: tuple, k: dict):
     return in_bytes, out_bytes, ops, ops / FP32_FLOPS * 1e3
 
 
-def device_us(torch, fn, kernel: str) -> float:
-    """Device microseconds of the kernels whose name contains ``kernel``
-    in one profiled call of ``fn``, after a warm-up call."""
+def device_us(torch, fn, kernel: str, calls: int = 5) -> float:
+    """Device microseconds of one launch of the kernel whose name contains
+    ``kernel`` (``fn`` launches it once): the median over the records of
+    ``calls`` profiled calls, after a warm-up call.  A trace can lose a
+    call's device records, so the median is over the records there are;
+    none at all fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.events()
-               if e.device_type.name == "CUDA" and kernel in e.name)
+    times = [e.self_device_time_total for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+    check(bool(times), f"profile: no device record of {kernel} in {calls} calls")
+    return statistics.median(times)
 
 
 def stage_ms(events, on_card, stages) -> dict:
@@ -923,13 +931,17 @@ def main() -> int:
     check(all(torch.equal(results[e, False][2][key], s[key])
               for e in engines for key in s), "stats differ across engines")
 
-    # the kernels on the inputs the main path gives them, vs their twins
+    # the kernels on the inputs the main path gives them at both batches
+    # (the Q = 1024 ones under the name "<wrapper>@1024"), vs their twins
     captured = {}
-    for name, engine in (("fused_window_search", "inline"), ("fused_cand_search", "kernel")):
-        captured[name] = capture_calls(
+    for (name, engine), (Qn, Qb) in itertools.product(
+            (("fused_window_search", "inline"), ("fused_cand_search", "kernel")),
+            ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k))):
+        key = name if Qn == N_QUERIES else f"{name}@{Qn}"
+        captured[key] = capture_calls(
             kernels, wrappers, name,
-            lambda: search_batch_fixed(index, Q64, engine=engine, **kw))
-        a, k = captured[name]
+            lambda: search_batch_fixed(index, Qb, engine=engine, **kw))
+        a, k = captured[key]
         # the norm form's d2 = ||x||^2 - 2<q,x> + ||q||^2 cancels: its
         # rounding scales with the norms (~1e3 after normalize_scale), not
         # with d2, and the kernel and the twin sum the dot in different
@@ -942,8 +954,9 @@ def main() -> int:
                            atol=atol, edge_ties=True)
             max_err[name] = max(max_err[name], err)
     torch.cuda.synchronize()
-    print(f"[main] ok: kernels agree with their twins on the main path's inputs "
-          f"(norm form atol 4e-6 x {scale:.1f}, exact form 1e-5); max |err| {max_err} "
+    print(f"[main] ok: kernels agree with their twins on the main path's inputs at Q = "
+          f"{N_QUERIES} and {N_QUERIES_LARGE} (norm form atol 4e-6 x the norms, {scale:.1f} "
+          f"at the last, exact form 1e-5); max |err| {max_err} "
           f"({phase_s():.1f} s)", flush=True)
 
     # --------------------------------------------------- 4. multi-pass path
@@ -1160,21 +1173,24 @@ def main() -> int:
           f"queries whose ids equal fp32's] of {N_QUERIES}: {json.dumps(term_equal)}",
           flush=True)
 
-    # each B3 launch against its twin on the path's own inputs
+    # each B3 launch against its twin on the path's own inputs, at both
+    # batches (the Q = 1024 ones under "<name>@1024")
     captured_b3 = {}
-    for name, (w, m) in B3.items():
+    for (name, (w, m)), (Qn, Qb) in itertools.product(B3.items(), batches.items()):
         engine = "inline" if w == "fused_window_search" else "kernel"
-        captured_b3[name] = capture_calls(
+        key = name if Qn == N_QUERIES else f"{name}@{Qn}"
+        captured_b3[key] = capture_calls(
             kernels, wrappers, w,
-            lambda: search_batch_fixed(quant_index[m], Q64, engine=engine, dtype=m, **kw))
-        a, k = captured_b3[name]
+            lambda: search_batch_fixed(quant_index[m], Qb[0], engine=engine, dtype=m, **kw))
+        a, k = captured_b3[key]
         nrm, q = (a[4], a[7]) if w == "fused_window_search" else (a[2], a[6])
         scale = float(nrm[torch.isfinite(nrm)].max()) + float((q * q).sum(-1).max())
         err, bits = quant_err(torch, wrappers[w](*a, **k), twins[w](*a, **k), m,
                               atol=1e-5 if m == "int8" else 4e-6 * scale)
         max_err[name], b3_bits[name] = max(max_err[name], err), b3_bits[name] and bits
     torch.cuda.synchronize()
-    print(f"[quant] ok: B3 agrees with its twin on the path's inputs (int8: rtol = atol = "
+    print(f"[quant] ok: B3 agrees with its twin on the path's inputs at Q = {N_QUERIES} and "
+          f"{N_QUERIES_LARGE} (int8: rtol = atol = "
           f"1e-5; bf16: ids >= 0.98, atol 4e-6 x {scale:.1f}); max |err| "
           f"{ {n_: max_err[n_] for n_ in B3} }; bit-equal to the twin: {json.dumps(b3_bits)} "
           f"({phase_s():.1f} s)", flush=True)
@@ -1427,22 +1443,30 @@ def main() -> int:
     path_launches = {**{n_: onepass_launches[n_] for n_ in FUSED},
                      **{n_: multi_launches[n_] for n_ in VERIFY}}
     path_launches.update(quant_launches)
+    # B1/B2 and each B3 instantiation at both batches (path_launches and
+    # max_abs_err are the kernel's, over the batches), B6/B7 at Q = 64
     timed = [(name, name, *KERNELS[name], captured[name]) for name in (*FUSED, *VERIFY)]
-    timed += [(name, w, KERNELS[w][0], B3_REPLACES, captured_b3[name])
-              for name, (w, _) in B3.items()]
+    timed += [(f"{name}@{N_QUERIES_LARGE}", name, *KERNELS[name],
+               captured[f"{name}@{N_QUERIES_LARGE}"]) for name in FUSED]
+    timed += [(name + sfx, w, KERNELS[w][0], B3_REPLACES, captured_b3[name + sfx])
+              for sfx in ("", f"@{N_QUERIES_LARGE}") for name, (w, _) in B3.items()]
     for name, wrapper, source, replaces, (a, k) in timed:
+        base = name.split("@")[0]
         ms = cuda_ms(torch, lambda: wrappers[wrapper](*a, **k), iters=50)
         plain_ms = cuda_ms(torch, lambda: twins[wrapper](*a, **k), iters=5)
+        dev_us = device_us(torch, lambda: wrappers[wrapper](*a, **k), f"{wrapper}_kernel")
         in_bytes, out_bytes, ops, ops_ms = work(torch, wrapper, a, k)
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[name], "max_abs_err": max_err[name],
+            "launches": path_launches[base], "max_abs_err": max_err[base],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": bound_by, "library_ms": None,
         })
-        print(f"[times] {name}: median {ms:.4f} ms/launch at Q={N_QUERIES} (twin {plain_ms:.3f} "
+        q_rows = a[-2] if wrapper in VERIFY else a[7 if wrapper == "fused_window_search" else 6]
+        print(f"[times] {name}: median {ms:.4f} ms/launch at Q={q_rows.shape[0]} "
+              f"(device {dev_us:.1f} us; twin {plain_ms:.3f} "
               f"ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
               f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)", flush=True)
 

@@ -32,7 +32,7 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "fused_search_smem_bytes": ((_I, _I, _I, _I), ctypes.c_size_t),
+    "fused_search_smem_bytes": ((_I,) * 7, ctypes.c_size_t),
     "fused_search_error_string": ((_I,), ctypes.c_char_p),
     "fused_window_search_launch": ((_P,) * 14 + (_I,) * 12 + (_P,), _I),
     "fused_cand_search_launch": ((_P,) * 13 + (_I,) * 9 + (_P,), _I),

@@ -21,222 +21,720 @@
 // the quantized query, then is scaled by the slot's and the query's
 // dequant scales; norms, q2 and admission stay float32.
 //
-// Bound on this card: the work is a gather of Q*S*B rows of K + d + 2
-// words (31 MB at the main path, Q = 64, S = 25, B = 64, K = 10, d = 64:
-// ~9 us at 3.35 TB/s), followed by a data-dependent selection.  At that
-// size the kernel is bound by launch latency and by the selection, not
-// by bandwidth.  The quantized rows are smaller (int8: K*4 + d + 12 =
-// 116 bytes a slot, ~12 MB, ~3.5 us; bf16: 180 bytes, ~5.5 us), but the
-// quantized search asks for ks = 4k per bin, four times the selection
-// rounds of the float32 search: B3 is bound by its selection.
+// Bound on this card: bytes.  The work is a gather of Q*S*B rows of
+// K + 2 words, d elements and (quantized) a scale: at the main path
+// (Q = 64, S = 25, B = 64, K = 10, d = 64) 31 MB in float32, ~9 us at
+// 3.35 TB/s; bf16 rows 180 bytes a slot (~5.5 us), int8 116 (~3.6 us).
+// The float32 arithmetic (3K + 2d per slot) is ~100x smaller.
 //
-// Design (a simple, deterministic first version):
-//   * one thread block per query, looping over the query's S*B slots —
-//     the TPU grid's sequential revisits of one output block become a
-//     loop inside the block, and no state crosses blocks;
-//   * phase 1: each thread takes slots in a strided loop and computes
-//     hw, bin and (for admitted slots) d2 in registers; the triples are
-//     staged in shared memory;
-//   * phase 2: warp w owns bins w, w + nwarps, ...; per bin it counts the
-//     bin's slots, then runs ks rounds that each pick the smallest pair
-//     strictly after the previous pick (a warp-wide lexicographic argmin
-//     over shared memory).  "Strictly after" dedups identical pairs, and
-//     ties on d2 resolve to the smallest id;
-//   * no atomics: outputs are deterministic;
-//   * a slot's d2 comes from one sequential fmaf chain over d that depends
-//     only on (x, q), never on the slot's position, so the copies of one
-//     point held by several tables give bit-identical (d2, id) pairs —
-//     the dedup relies on that;
+// Design:
+//   * one thread-block cluster per query, of `split` blocks (1, 2 or 4:
+//     the launch takes the largest that keeps Q * split within the SM
+//     count, so a batch of 64 queries fills 128 SMs); block r of the
+//     cluster takes an r-th share of the query's slots (whole STR blocks
+//     in B1) and the bins j with j % split == r;
+//   * phase 1 (512 threads a block) stages the slots' rows in shared
+//     memory, `rows` slots at a time, double-buffered with cp.async: x
+//     rows in 16-byte copies where a row is a whole number of 16-byte
+//     chunks and the base is aligned (else element by element),
+//     projection rows in 8-byte copies where K is even (else 4-byte), the
+//     per-slot words in 4-byte copies; neighbouring threads copy
+//     neighbouring addresses, and a table of the stage's
+//     device rows, filled two stages ahead, spares the copy loops any
+//     division.  The stage size follows the grid (kStageBudget*).  The x
+//     rows are padded so that the threads' 16-byte reads of their own
+//     rows hit distinct banks.  Each thread then takes one staged slot:
+//     hw, bin and (admitted slots) d2 from shared memory;
+//   * a slot's d2 is one sequential chain over i = 0..d-1 (fmaf in float32
+//     and bf16; in int8 an int32 sum, exact in any order, so taken four
+//     products at a time with dp4a; then dequant_d2's rounded steps),
+//     the same operations on the same values as slot_d2 reads from device
+//     memory, so every copy of a point gives a bit-identical (d2, id) pair
+//     and the one-pass exact=True search stays bit-equal to the
+//     multi-pass oracle (B6/B7) and to the pool engines (B4/B5);
+//   * bucketing: phase 1 keeps each slot's (d2, id) as a 64-bit key and
+//     counts each bin's slots (cnt) and its slots with a finite d2
+//     (shared-memory atomics on integer counts); a prefix sum and a
+//     scatter give each bin a list of its slots;
+//   * selection: one warp per bin walks the bin's list in the cluster
+//     (distributed shared memory for the other blocks' lists) as 64-bit
+//     keys ordered as (d2, id).  A key below the bin's current ks-th
+//     distinct key joins a 512-key buffer; a full buffer (and the last)
+//     is cut to its ks smallest distinct keys, which set the new
+//     threshold: each lane sorts its (at most 16) keys in registers, then
+//     ks rounds of a warp-wide minimum over the lanes' smallest keys pop
+//     them (two 32-bit `redux` minima a round), a repeated key once.  The
+//     result, the ks smallest distinct finite pairs, does not depend on
+//     the order in which the scatter filled the lists, so the outputs are
+//     deterministic: warp_select's result (search_common.cuh), bit for
+//     bit.  A bin width ks > 480 (the buffer could not take a warp's keys
+//     beside the kept ones) takes ks argmin rounds over the bin's list;
 //   * block bases use 64-bit element offsets (the main path addresses
-//     3.2e8 floats of vec_blocks);
-//   * any d (no vector loads that would need d % 4 == 0; int8 rows are
-//     read a byte at a time);
-//   * the quantized query is staged in shared memory widened (bf16 to
-//     float, int8 to int), in the place of the float32 query;
-//   * the staging, hw, d2 and selection helpers live in search_common.cuh,
-//     shared with the per-radius verify kernels (window_verify.cu).
+//     3.2e8 floats of vec_blocks).
+
+#include <cooperative_groups.h>
 
 #include "search_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace dblsh;
 
-struct Stage {
-  float* halves;  // (steps,)
-  float* g;       // (L*K,) this query's projections
-  float* q;       // (d,)
-  float* d2;      // (C,) per-slot distances
-  int* id;        // (C,) per-slot ids
-  int* bin;       // (C,) per-slot bins (steps = never admitted)
-};
-
-__host__ __device__ inline size_t stage_bytes(int steps, int LK, int d, int C) {
-  return sizeof(float) * (size_t)(steps + LK + d) +
-         (size_t)C * (sizeof(float) + 2 * sizeof(int));
-}
-
-__device__ inline Stage carve(char* base, int steps, int LK, int d, int C) {
-  Stage s;
-  float* f = reinterpret_cast<float*>(base);
-  s.halves = f;
-  s.g = s.halves + steps;
-  s.q = s.g + LK;
-  s.d2 = s.q + d;
-  s.id = reinterpret_cast<int*>(s.d2 + C);
-  s.bin = s.id + C;
-  return s;
-}
-
-// Stage this query's halves, projections and distance operand: the
-// float32 query, or the quantized one widened (bf16 -> float, int8 -> int
-// in the same 4-byte words).
-template <int kMode>
-__device__ inline void stage_query(const Stage& s, const float* __restrict__ halves,
-                                   const float* __restrict__ g, const void* qv, int qi,
-                                   int steps, int LK, int d) {
-  stage(s.halves, halves, steps);
-  stage(s.g, g + (int64_t)qi * LK, LK);
-  if constexpr (kMode == kBf16) {
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(qv) + (int64_t)qi * d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) s.q[i] = __bfloat162float(src[i]);
-  } else if constexpr (kMode == kInt8) {
-    const int8_t* src = static_cast<const int8_t*>(qv) + (int64_t)qi * d;
-    int* dst = reinterpret_cast<int*>(s.q);
-    for (int i = threadIdx.x; i < d; i += blockDim.x) dst[i] = src[i];
-  } else {
-    stage(s.q, static_cast<const float*>(qv) + (int64_t)qi * d, d);
-  }
-}
-
-// d2 of slot `row` (a row of x and of the per-slot arrays) in mode kMode;
-// xs: per-slot dequant scales (quantized modes only), qs: this query's.
-template <int kMode>
-__device__ inline float mode_d2(const void* x, int64_t row, const float* sq, int d,
-                                float nrm, float q2, const float* __restrict__ xs,
-                                float qs) {
-  if constexpr (kMode == kExact) {
-    return slot_d2<true>(static_cast<const float*>(x) + row * d, sq, d, nrm, q2);
-  } else if constexpr (kMode == kNorm) {
-    return slot_d2<false>(static_cast<const float*>(x) + row * d, sq, d, nrm, q2);
-  } else if constexpr (kMode == kBf16) {
-    return slot_d2_q(static_cast<const __nv_bfloat16*>(x) + row * d, sq, d, nrm, q2,
-                     xs[row], qs);
-  } else {
-    return slot_d2_q(static_cast<const int8_t*>(x) + row * d,
-                     reinterpret_cast<const int*>(sq), d, nrm, q2, xs[row], qs);
-  }
-}
+constexpr int kFusedThreads = 512;
+constexpr int kWarps = kFusedThreads / 32;
+constexpr int kSortLane = 16;                  // buffered keys a lane holds at most
+constexpr int kSortCap = 32 * kSortLane;       // keys one warp buffers per bin
+constexpr int kMaxSplit = 4;                   // blocks in a query's cluster
+// Bytes of the two stage buffers: a grid that fits the SMs once (one
+// block an SM) takes large stages; a larger grid smaller ones, so that two
+// blocks share an SM (the fastest of the sizes measured at Q = 64 / 1024).
+constexpr size_t kStageBudgetOnce = 160 * 1024;
+constexpr size_t kStageBudget = 96 * 1024;
+constexpr size_t kMaxSmem = 232448;            // a block's shared memory on Hopper
+constexpr unsigned long long kNoKey = ~0ull;   // above every (d2, id) key
 
 __host__ __device__ constexpr bool quantized(int mode) { return mode == kBf16 || mode == kInt8; }
+__host__ __device__ constexpr int x_bytes(int mode) {
+  return mode == kBf16 ? 2 : mode == kInt8 ? 1 : 4;
+}
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
-__device__ inline int slot_bin(float hw, const float* halves, int steps) {
-  int b = 0;
-  for (int j = 0; j < steps; ++j) b += hw > halves[j];
-  return b;
+// Everything a launch passes: the operands (B2 puts its gathered arrays in
+// the same fields), the shape, and the shared-memory plan.
+struct Args {
+  const int* blk;  // (Q, S) block ids (B1 only)
+  const float* proj;
+  const void* x;
+  const float* nrm;
+  const int* ids;
+  const float* xs;  // per-slot dequant scales (quantized modes)
+  const float* halves;
+  const float* g;
+  const void* qv;
+  const float* q2;
+  const float* qs;
+  float* bd;
+  int* bi;
+  int* cnt;
+  int S, M, lnb, B;  // B1: slots are rows of the S selected blocks of B rows
+  int Ct;            // B2: candidates per table
+  int C, L, K, d, steps, ks, n;
+  int split;         // blocks per query (the cluster's size)
+  int rows;          // slots per stage buffer
+  int xstride;       // bytes per staged x row
+  int kp;            // floats per staged projection row
+  int xvec;          // x rows staged in 16-byte copies
+  int pvec;          // projection rows staged in 8-byte copies (even K, aligned)
+  // byte offsets into the dynamic shared memory
+  int o_g, o_q, o_qp, o_blk, o_hist, o_key, o_bin, o_list, o_rows, o_region, buf_bytes;
+  // within a stage buffer
+  int b_proj, b_nrm, b_id, b_xs;
+};
+
+// The shared-memory plan of one block for a pool of `cap` slots.
+struct Plan {
+  int rows, xstride, kp;
+  size_t o_g, o_q, o_qp, o_blk, o_hist, o_key, o_bin, o_list, o_rows, o_region, buf_bytes, total;
+  size_t b_proj, b_nrm, b_id, b_xs;
+};
+
+size_t buffer_bytes(int rows, int xstride, int kp, Plan* p) {
+  size_t off = align16((size_t)rows * xstride);
+  if (p) p->b_proj = off;
+  off = align16(off + (size_t)rows * kp * 4);
+  if (p) p->b_nrm = off;
+  off = align16(off + (size_t)rows * 4);
+  if (p) p->b_id = off;
+  off = align16(off + (size_t)rows * 4);
+  if (p) p->b_xs = off;
+  return align16(off + (size_t)rows * 4);
 }
 
-// Phase 2: per-bin counts and distinct top-ks, one warp per bin.
-__device__ void select_bins(const Stage& s, int C, int steps, int ks, int n,
-                            float* __restrict__ bd, int* __restrict__ bi,
-                            int* __restrict__ cnt) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int* bin = s.bin;
-  for (int j = threadIdx.x >> 5; j < steps; j += nwarps) {
-    int in_bin = 0;
-    for (int c = lane; c < C; c += 32) in_bin += bin[c] == j;
-    for (int off = 16; off > 0; off >>= 1) in_bin += __shfl_xor_sync(kFullMask, in_bin, off);
-    if (lane == 0) cnt[j] = in_bin;
-    warp_select(s.d2, s.id, C, ks, n, [bin, j](int c) { return bin[c] == j; },
-                bd + j * ks, bi + j * ks);
+// Counts and slot arrays are sized by `cap` (< 65,536: the plan of a pool
+// that large exceeds kMaxSmem, so bins and list entries fit in 16 bits);
+// the two stage buffers take at most `budget` bytes.
+Plan plan(int mode, int steps, int L, int K, int d, int S, int cap, size_t budget) {
+  Plan p;
+  const int rowbytes = d * x_bytes(mode);
+  if (rowbytes % 16 == 0) {
+    // 16-byte reads by 8 threads of a quarter warp at a stride of
+    // 16 * (odd) bytes fall on distinct banks
+    p.xstride = rowbytes + ((rowbytes / 16) % 2 == 0 ? 16 : 32);
+  } else {
+    p.xstride = (rowbytes + 3) & ~3;
+    if ((p.xstride / 4) % 2 == 0) p.xstride += 4;  // an odd word stride
   }
+  p.kp = K | 1;  // the 4-byte path's odd stride; the 8-byte path's K is smaller
+  size_t off = align16((size_t)steps * 4);
+  p.o_g = off;
+  off = align16(off + (size_t)L * K * 4);
+  p.o_q = off;
+  off = align16(off + (size_t)d * 4);
+  p.o_qp = off;  // int8: the query packed, 4 elements a word
+  off = align16(off + (size_t)d);
+  p.o_blk = off;
+  off = align16(off + (size_t)S * 4);
+  p.o_hist = off;
+  off = align16(off + (size_t)4 * steps * 4);
+  p.o_key = off;
+  off = align16(off + (size_t)cap * 8);
+  p.o_bin = off;
+  off = align16(off + (size_t)cap * 2);
+  p.o_list = off;
+  off = align16(off + (size_t)cap * 2);
+  p.o_rows = off;  // the row table, 3 stages of rows (sized below)
+  // a selection buffer for each warp that can own a bin (warp w < steps)
+  const size_t sort_bytes = (size_t)(steps < kWarps ? steps : kWarps) * kSortCap * 8;
+  const size_t left = off < kMaxSmem ? kMaxSmem - off : 0;
+  const size_t room = left < budget ? left : budget;
+  // a row's bytes in the two buffers and the row table (alignment aside)
+  const size_t per_row = p.xstride + (size_t)p.kp * 4 + 3 * 4 + 3 * 8;
+  int rows = (int)(room / (2 * per_row));
+  rows = rows > kFusedThreads ? kFusedThreads : rows;
+  if (rows >= 32) rows &= ~31;
+  while (rows > 1 && 2 * buffer_bytes(rows, p.xstride, p.kp, nullptr) + 24 * rows > room)
+    --rows;
+  p.rows = rows < 1 ? 1 : rows;
+  off = align16(off + (size_t)3 * p.rows * 8);
+  p.o_region = off;
+  p.buf_bytes = buffer_bytes(p.rows, p.xstride, p.kp, &p);
+  const size_t stage_bytes = 2 * p.buf_bytes;
+  p.total = off + (stage_bytes > sort_bytes ? stage_bytes : sort_bytes);
+  return p;
 }
 
-// B1: slots are rows of the selected STR blocks of the flattened (L*nb)
-// block axis; block ids outside [0, lnb) contribute nothing, not even to cnt.
-// x: (L*nb, B, d) float32, bf16 or int8 by kMode; xs: (L*nb, B) dequant
-// scales and qs: (Q,) query scales, read only in the quantized modes.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) fused_window_search_kernel(
-    const int* __restrict__ blk, const float* __restrict__ halves,
-    const float* __restrict__ proj, const void* __restrict__ x,
-    const float* __restrict__ nrm, const int* __restrict__ ids,
-    const float* __restrict__ g, const void* __restrict__ qv,
-    const float* __restrict__ q2, const float* __restrict__ qs,
-    const float* __restrict__ xs, float* __restrict__ bd, int* __restrict__ bi,
-    int* __restrict__ cnt, int S, int M, int lnb, int B, int K, int d, int L,
-    int steps, int ks, int n) {
-  extern __shared__ __align__(16) char smem[];
-  const int qi = blockIdx.x;
-  const int C = S * B;
-  const Stage s = carve(smem, steps, L * K, d, C);
-  stage_query<kMode>(s, halves, g, qv, qi, steps, L * K, d);
-  __syncthreads();
+// ------------------------------------------------------------- cp.async
 
-  const float qq = q2[qi];
-  const float qsc = quantized(kMode) ? qs[qi] : 1.0f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int slot = c / B;
-    const int b = c - slot * B;
-    const int bk = blk[(int64_t)qi * S + slot];
-    float dv = INFINITY;
-    int iv = n;
-    int bin = steps;
-    if (bk >= 0 && bk < lnb) {
-      const int64_t row = (int64_t)bk * B + b;
-      bin = slot_bin(slot_hw(proj + row * K, s.g + (slot / M) * K, K), s.halves, steps);
-      if (bin < steps) {
-        dv = mode_d2<kMode>(x, row, s.q, d, nrm[row], qq, xs, qsc);
-        iv = ids[row];
+__device__ inline void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ inline void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------ the slot's d2
+
+// d2 of one staged x row, in the order and with the operations of
+// slot_d2 / dequant_d2 (search_common.cuh).  vec: the row is whole
+// 16-byte chunks, read 16 bytes at a time, and so is the staged query;
+// else element by element.  qp: the int8 query packed (int8 mode).
+template <int kMode>
+__device__ inline float staged_d2(const char* xr, bool vec, const float* q, const int* qp,
+                                  int d, float nrm, float q2, float xs, float qs) {
+  if constexpr (kMode == kNorm || kMode == kExact) {
+    float acc = 0.0f;
+    const float* xf = reinterpret_cast<const float*>(xr);
+    if (vec) {
+      for (int i = 0; i < d; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xf + i);
+        const float4 w = *reinterpret_cast<const float4*>(q + i);
+        const float e[4] = {v.x, v.y, v.z, v.w};
+        const float f[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if constexpr (kMode == kExact) {
+            const float t = e[u] - f[u];
+            acc = fmaf(t, t, acc);
+          } else {
+            acc = fmaf(e[u], f[u], acc);
+          }
+        }
+      }
+    } else {
+      for (int i = 0; i < d; ++i) {
+        if constexpr (kMode == kExact) {
+          const float t = xf[i] - q[i];
+          acc = fmaf(t, t, acc);
+        } else {
+          acc = fmaf(xf[i], q[i], acc);
+        }
       }
     }
-    s.d2[c] = dv;
-    s.id[c] = iv;
-    s.bin[c] = bin;
+    if constexpr (kMode == kExact) return acc;
+    return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
+  } else if constexpr (kMode == kBf16) {
+    // q staged widened to float; a bf16 x bf16 product is exact in float32
+    float acc = 0.0f;
+    const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(xr);
+    if (vec) {
+      for (int i = 0; i < d; i += 8) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(xh + i);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        const float4 w0 = *reinterpret_cast<const float4*>(q + i);
+        const float4 w1 = *reinterpret_cast<const float4*>(q + i + 4);
+        const float f[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc = fmaf(__bfloat162float(e[u]), f[u], acc);
+      }
+    } else {
+      for (int i = 0; i < d; ++i) acc = fmaf(__bfloat162float(xh[i]), q[i], acc);
+    }
+    return dequant_d2(acc, nrm, q2, xs, qs);
+  } else {
+    // q staged widened to int, and packed; the int32 sum is exact in any
+    // order, so four-way dot products (dp4a) give the same value
+    const int* qi = reinterpret_cast<const int*>(q);
+    const int8_t* xb = reinterpret_cast<const int8_t*>(xr);
+    int acc = 0;
+    if (vec) {
+      for (int i = 0; i < d; i += 16) {
+        const int4 v = *reinterpret_cast<const int4*>(xb + i);
+        const int4 w = *reinterpret_cast<const int4*>(qp + i / 4);
+        acc = __dp4a(v.x, w.x, acc);
+        acc = __dp4a(v.y, w.y, acc);
+        acc = __dp4a(v.z, w.z, acc);
+        acc = __dp4a(v.w, w.w, acc);
+      }
+    } else {
+      for (int i = 0; i < d; ++i) acc += (int)xb[i] * qi[i];
+    }
+    return dequant_d2((float)acc, nrm, q2, xs, qs);
   }
-  __syncthreads();
-  select_bins(s, C, steps, ks, n, bd + (int64_t)qi * steps * ks,
-              bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
 }
 
-// B2: slots are pre-gathered (Q, L, Ct, .) candidates; invalid slots carry
-// +inf projections, so hw = +inf keeps them out of every bin.  cx is
-// float32, bf16 or int8 by kMode; cscale: (Q, L, Ct) dequant scales.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) fused_cand_search_kernel(
-    const float* __restrict__ cproj, const void* __restrict__ cx,
-    const float* __restrict__ cnrm, const int* __restrict__ cids,
-    const float* __restrict__ halves, const float* __restrict__ g,
-    const void* __restrict__ qv, const float* __restrict__ q2,
-    const float* __restrict__ qs, const float* __restrict__ cscale,
-    float* __restrict__ bd, int* __restrict__ bi, int* __restrict__ cnt, int L,
-    int Ct, int K, int d, int steps, int ks, int n) {
+// --------------------------------------------------------- selection
+
+// (d2, id) as one 64-bit key whose unsigned order is the lexicographic
+// order of the pairs: the float's bits made monotonic, then the id with
+// its sign bit flipped.
+__device__ inline unsigned long long pair_key(float d, int id) {
+  unsigned u = __float_as_uint(d);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)(id ^ INT_MIN);
+}
+
+__device__ inline float key_d2(unsigned long long key) {
+  const unsigned u = (unsigned)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ inline int key_id(unsigned long long key) { return (int)(unsigned)key ^ INT_MIN; }
+
+// The warp's smallest key: two single-instruction 32-bit reductions, on
+// the d2 half, then on the id half among the lanes holding that d2.
+__device__ inline unsigned long long warp_min_key(unsigned long long key) {
+  const unsigned hi = (unsigned)(key >> 32);
+  const unsigned mh = __reduce_min_sync(kFullMask, hi);
+  const unsigned ml = __reduce_min_sync(kFullMask, hi == mh ? (unsigned)key : 0xffffffffu);
+  return ((unsigned long long)mh << 32) | ml;
+}
+
+// One bin's list in one block of the cluster.
+struct BinList {
+  const uint16_t* list;             // slot indices of the bin, from `off`
+  const unsigned long long* keys;   // the block's per-slot keys
+  int off, m;
+};
+
+// Calls f(key) on every key of the bin, 32 at a time (one a lane; lanes
+// past the end pass kNoKey), the whole warp in step.  Four keys a lane
+// are loaded ahead, so the loads' latencies (distributed shared memory
+// for another block's list) overlap.
+template <typename F>
+__device__ inline void for_keys(const BinList* lists, int nlist, F f) {
+  constexpr int kAhead = 4;
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < nlist; ++r) {
+    const BinList b = lists[r];
+    for (int base = 0; base < b.m; base += 32 * kAhead) {
+      unsigned long long key[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int e = base + u * 32 + lane;
+        key[u] = e < b.m ? b.keys[b.list[b.off + e]] : kNoKey;
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        if (base + u * 32 < b.m) f(key[u]);  // warp-uniform
+    }
+  }
+}
+
+// Run by one warp: write the (at most ks) smallest distinct keys among
+// the first nbuf <= 32*E keys of buf, ascending, to its front; returns how
+// many.  Each lane sorts its E keys (buf[e*32 + lane]) in registers; each
+// round then takes the warp-wide minimum of the lanes' smallest keys, and
+// every lane holding that key drops it, so a key repeated anywhere is
+// written once.
+template <int E>
+__device__ inline int take_smallest(unsigned long long* buf, int nbuf, int ks) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = e * 32 + lane;
+    v[e] = i < nbuf ? buf[i] : kNoKey;
+  }
+  __syncwarp();
+  constexpr int kLog = E == 2 ? 1 : E == 4 ? 2 : E == 8 ? 3 : 4;
+#pragma unroll
+  for (int lk = 1; lk <= kLog; ++lk) {  // bitonic network over the registers
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int p = e ^ (1 << lj);
+        if (p > e) {
+          const bool up = (e & (1 << lk)) == 0;
+          const unsigned long long a = v[e], b = v[p];
+          if ((a > b) == up) {
+            v[e] = b;
+            v[p] = a;
+          }
+        }
+      }
+    }
+  }
+  int r = 0;
+  for (; r < ks; ++r) {
+    const unsigned long long best = warp_min_key(v[0]);
+    if (best == kNoKey) break;  // warp-uniform
+    if (lane == 0) buf[r] = best;
+    while (v[0] == best) {
+#pragma unroll
+      for (int e = 0; e + 1 < E; ++e) v[e] = v[e + 1];
+      v[E - 1] = kNoKey;
+    }
+  }
+  return r;
+}
+
+// Run by one warp: the ks smallest distinct keys of the bin, ascending,
+// to bd/bi; unfilled entries (+inf, fill).  buf: the warp's kSortCap keys.
+__device__ void select_bin(const BinList* lists, int nlist, int ks, int fill,
+                           unsigned long long* buf, float* __restrict__ bd,
+                           int* __restrict__ bi) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  int ntop = 0;
+  if (ks <= kSortCap - 32) {
+    int nbuf = 0;
+    unsigned long long T = kNoKey;  // the ks-th kept key once ks are kept
+    // keep the buffer's ks smallest distinct keys at its front
+    auto flush = [&]() {
+      __syncwarp();
+      if (nbuf <= 64) {
+        ntop = take_smallest<2>(buf, nbuf, ks);
+      } else if (nbuf <= 128) {
+        ntop = take_smallest<4>(buf, nbuf, ks);
+      } else if (nbuf <= 256) {
+        ntop = take_smallest<8>(buf, nbuf, ks);
+      } else {
+        ntop = take_smallest<kSortLane>(buf, nbuf, ks);
+      }
+      nbuf = ntop;
+      __syncwarp();
+      T = ntop == ks ? buf[ks - 1] : kNoKey;
+    };
+    for_keys(lists, nlist, [&](unsigned long long key) {
+      bool take = key < T;
+      unsigned bal = __ballot_sync(kFullMask, take);
+      if (nbuf + __popc(bal) > kSortCap) {
+        flush();
+        take = key < T;
+        bal = __ballot_sync(kFullMask, take);
+      }
+      if (take) buf[nbuf + __popc(bal & lt)] = key;
+      nbuf += __popc(bal);
+    });
+    if (nbuf != ntop) flush();
+    __syncwarp();
+    for (int r = lane; r < ntop; r += 32) {
+      bd[r] = key_d2(buf[r]);
+      bi[r] = key_id(buf[r]);
+    }
+  } else {
+    // ks argmin rounds, each over the keys strictly above the last pick
+    unsigned long long last = 0;
+    for (; ntop < ks; ++ntop) {
+      unsigned long long best = kNoKey;
+      const bool any = ntop > 0;
+      for_keys(lists, nlist, [&](unsigned long long key) {
+        if ((!any || key > last) && key < best) best = key;
+      });
+      best = warp_min_key(best);
+      if (best == kNoKey) break;  // warp-uniform
+      if (lane == 0) {
+        bd[ntop] = key_d2(best);
+        bi[ntop] = key_id(best);
+      }
+      last = best;
+    }
+  }
+  for (int r = ntop + lane; r < ks; r += 32) {
+    bd[r] = INFINITY;
+    bi[r] = fill;
+  }
+}
+
+// ----------------------------------------------------------- the body
+
+// kWindow: B1 (slots are rows of the query's S selected blocks of the
+// flattened (L*nb) block axis; ids outside [0, lnb) contribute nothing,
+// not even to cnt); else B2 (slots are the query's (L, Ct) gathered
+// candidates; invalid ones carry +inf projections, so hw = +inf keeps them
+// out of every bin).
+template <int kMode, bool kWindow>
+__device__ inline void search_body(const Args& a) {
   extern __shared__ __align__(16) char smem[];
-  const int qi = blockIdx.x;
-  const int C = L * Ct;
-  const Stage s = carve(smem, steps, L * K, d, C);
-  stage_query<kMode>(s, halves, g, qv, qi, steps, L * K, d);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int qi = blockIdx.x / a.split;
+  const int tid = threadIdx.x;
+  const int steps = a.steps, K = a.K, d = a.d, B = a.B;
+
+  float* halves = reinterpret_cast<float*>(smem);
+  float* sg = reinterpret_cast<float*>(smem + a.o_g);
+  float* sq = reinterpret_cast<float*>(smem + a.o_q);
+  int* sblk = reinterpret_cast<int*>(smem + a.o_blk);
+  int* hist = reinterpret_cast<int*>(smem + a.o_hist);  // all | finite | fill | off
+  int* sqp = reinterpret_cast<int*>(smem + a.o_qp);
+  unsigned long long* skey = reinterpret_cast<unsigned long long*>(smem + a.o_key);
+  uint16_t* sbin = reinterpret_cast<uint16_t*>(smem + a.o_bin);
+  uint16_t* slist = reinterpret_cast<uint16_t*>(smem + a.o_list);
+  int64_t* rowtab = reinterpret_cast<int64_t*>(smem + a.o_rows);  // 3 stages of rows
+  char* region = smem + a.o_region;
+
+  // this block's share of the query's slots
+  int c0, c1;
+  if constexpr (kWindow) {
+    c0 = (rank * a.S / a.split) * B;
+    c1 = ((rank + 1) * a.S / a.split) * B;
+  } else {
+    c0 = rank * a.C / a.split;
+    c1 = (rank + 1) * a.C / a.split;
+  }
+
+  // the query: halves, projections, distance operand (the float32 query,
+  // or the quantized one widened to 4-byte words), block ids; counts at 0
+  stage(halves, a.halves, steps);
+  stage(sg, a.g + (int64_t)qi * a.L * K, a.L * K);
+  if constexpr (kMode == kBf16) {
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(a.qv) + (int64_t)qi * d;
+    for (int i = tid; i < d; i += blockDim.x) sq[i] = __bfloat162float(src[i]);
+  } else if constexpr (kMode == kInt8) {
+    const int8_t* src = static_cast<const int8_t*>(a.qv) + (int64_t)qi * d;
+    int* dst = reinterpret_cast<int*>(sq);
+    int8_t* packed = reinterpret_cast<int8_t*>(sqp);
+    for (int i = tid; i < d; i += blockDim.x) {
+      dst[i] = src[i];
+      packed[i] = src[i];
+    }
+  } else {
+    stage(sq, static_cast<const float*>(a.qv) + (int64_t)qi * d, d);
+  }
+  if constexpr (kWindow) {
+    for (int s = tid; s < a.S; s += blockDim.x) sblk[s] = a.blk[(int64_t)qi * a.S + s];
+  }
+  for (int i = tid; i < 4 * steps; i += blockDim.x) hist[i] = 0;
   __syncthreads();
 
-  const float qq = q2[qi];
-  const float qsc = quantized(kMode) ? qs[qi] : 1.0f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int64_t row = (int64_t)qi * C + c;
-    float dv = INFINITY;
-    int iv = n;
-    const int bin = slot_bin(slot_hw(cproj + row * K, s.g + (c / Ct) * K, K), s.halves, steps);
-    if (bin < steps) {
-      dv = mode_d2<kMode>(cx, row, s.q, d, cnrm[row], qq, cscale, qsc);
-      iv = cids[row];
+  const float qq = a.q2[qi];
+  const float qsc = quantized(kMode) ? a.qs[qi] : 1.0f;
+  const int xb = x_bytes(kMode);
+  const int rowbytes = d * xb;
+  const bool xvec = a.xvec != 0;
+
+  // the device row of slot c, or -1 for a slot of an invalid block
+  auto row_of = [&](int c) -> int64_t {
+    if constexpr (kWindow) {
+      const int s = c / B;
+      const int bk = sblk[s];
+      return (bk >= 0 && bk < a.lnb) ? (int64_t)bk * B + (c - s * B) : -1;
+    } else {
+      return (int64_t)qi * a.C + c;
     }
-    s.d2[c] = dv;
-    s.id[c] = iv;
-    s.bin[c] = bin;
+  };
+
+  // ---- phase 1: stage `rows` slots at a time, double-buffered.  The
+  // device rows of stage t (-1: a slot of an invalid block) are tabled in
+  // rowtab[t % 3] two stages ahead, so the copy loops do no division.
+  const int nloc = c1 - c0;
+  const int R = a.rows;
+  const int nstage = (nloc + R - 1) / R;
+  const int nt = blockDim.x;
+  auto fill_rows = [&](int t) {
+    if (t >= nstage) return;
+    const int cb = c0 + t * R;
+    const int nr = min(R, c1 - cb);
+    for (int i = tid; i < nr; i += nt) rowtab[(t % 3) * R + i] = row_of(cb + i);
+  };
+  // thread tid's copies of an (nr x w) grid of units, row-major: f(row, i, u)
+  auto copy_grid = [&](const int64_t* rt, int nr, int w, auto f) {
+    int i = tid / w, u = tid - i * w;
+    const int di = nt / w, du = nt - di * w;
+    for (;;) {
+      if (u >= w) {
+        u -= w;
+        ++i;
+      }
+      if (i >= nr) break;
+      const int64_t row = rt[i];
+      if (row >= 0) f(row, i, u);
+      i += di;
+      u += du;
+    }
+  };
+  auto issue = [&](int t) {
+    char* buf = region + (size_t)(t & 1) * a.buf_bytes;
+    const int64_t* rt = rowtab + (t % 3) * R;
+    const int nr = min(R, c1 - (c0 + t * R));
+    if (xvec) {
+      copy_grid(rt, nr, rowbytes >> 4, [&](int64_t row, int i, int j) {
+        cp_async16(buf + (size_t)i * a.xstride + j * 16,
+                   static_cast<const char*>(a.x) + row * rowbytes + j * 16);
+      });
+    } else {
+      copy_grid(rt, nr, d, [&](int64_t row, int i, int e) {
+        char* dst = buf + (size_t)i * a.xstride;
+        if constexpr (kMode == kBf16) {
+          reinterpret_cast<__nv_bfloat16*>(dst)[e] =
+              static_cast<const __nv_bfloat16*>(a.x)[row * d + e];
+        } else if constexpr (kMode == kInt8) {
+          reinterpret_cast<int8_t*>(dst)[e] = static_cast<const int8_t*>(a.x)[row * d + e];
+        } else {
+          cp_async4(reinterpret_cast<float*>(dst) + e,
+                    static_cast<const float*>(a.x) + row * d + e);
+        }
+      });
+    }
+    float* sp = reinterpret_cast<float*>(buf + a.b_proj);
+    if (a.pvec) {
+      copy_grid(rt, nr, K >> 1, [&](int64_t row, int i, int k) {
+        cp_async8(sp + i * a.kp + 2 * k, a.proj + row * K + 2 * k);
+      });
+    } else {
+      copy_grid(rt, nr, K, [&](int64_t row, int i, int k) {
+        cp_async4(sp + i * a.kp + k, a.proj + row * K + k);
+      });
+    }
+    for (int i = tid; i < nr; i += nt) {
+      const int64_t row = rt[i];
+      if (row < 0) continue;
+      cp_async4(buf + a.b_nrm + i * 4, a.nrm + row);
+      cp_async4(buf + a.b_id + i * 4, a.ids + row);
+      if constexpr (quantized(kMode)) cp_async4(buf + a.b_xs + i * 4, a.xs + row);
+    }
+  };
+
+  fill_rows(0);
+  fill_rows(1);
+  __syncthreads();
+  if (nstage > 0) issue(0);
+  cp_async_commit();
+  for (int t = 0; t < nstage; ++t) {
+    if (t + 1 < nstage) issue(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const char* buf = region + (size_t)(t & 1) * a.buf_bytes;
+    const float* sp = reinterpret_cast<const float*>(buf + a.b_proj);
+    const int64_t* rt = rowtab + (t % 3) * R;
+    const int cb = c0 + t * R;
+    const int nr = min(R, c1 - cb);
+    for (int i = tid; i < nr; i += nt) {
+      const int c = cb + i;
+      float dv = INFINITY;
+      int iv = a.n;
+      int bin = steps;
+      if (rt[i] >= 0) {
+        const int table = kWindow ? (c / B) / a.M : c / a.Ct;
+        const float* p = sp + i * a.kp;
+        const float* gq = sg + table * K;
+        float hw = 0.0f;
+        if (a.pvec) {  // stride K (even): 8-byte reads by 16 threads hit distinct banks
+          for (int k = 0; k < K; k += 2) {
+            const float2 v = *reinterpret_cast<const float2*>(p + k);
+            hw = fmaxf(hw, fabsf(v.x - gq[k]));
+            hw = fmaxf(hw, fabsf(v.y - gq[k + 1]));
+          }
+        } else {
+          for (int k = 0; k < K; ++k) hw = fmaxf(hw, fabsf(p[k] - gq[k]));
+        }
+        bin = 0;
+        for (int j = 0; j < steps; ++j) bin += hw > halves[j];
+        if (bin < steps) {
+          const float xsv =
+              quantized(kMode) ? reinterpret_cast<const float*>(buf + a.b_xs)[i] : 1.0f;
+          dv = staged_d2<kMode>(buf + (size_t)i * a.xstride, xvec, sq, sqp, d,
+                                reinterpret_cast<const float*>(buf + a.b_nrm)[i], qq, xsv, qsc);
+          iv = reinterpret_cast<const int*>(buf + a.b_id)[i];
+          atomicAdd(&hist[bin], 1);
+          if (dv < INFINITY) atomicAdd(&hist[steps + bin], 1);
+        }
+      }
+      // the slot's key, and the bin whose list takes it (steps: none)
+      const int lc = c - c0;
+      const bool listed = bin < steps && dv < INFINITY;
+      skey[lc] = pair_key(dv, iv);
+      sbin[lc] = (uint16_t)(listed ? bin : steps);
+    }
+    fill_rows(t + 2);
+    __syncthreads();
+  }
+
+  // ---- bucketing: each bin's slots with a finite d2, in a list
+  if (tid == 0) {
+    int off = 0;
+    for (int j = 0; j < steps; ++j) {
+      hist[3 * steps + j] = off;
+      off += hist[steps + j];
+    }
   }
   __syncthreads();
-  select_bins(s, C, steps, ks, n, bd + (int64_t)qi * steps * ks,
-              bi + (int64_t)qi * steps * ks, cnt + (int64_t)qi * steps);
+  for (int lc = tid; lc < nloc; lc += blockDim.x) {
+    const int j = sbin[lc];
+    if (j < steps) slist[hist[3 * steps + j] + atomicAdd(&hist[2 * steps + j], 1)] = (uint16_t)lc;
+  }
+  cluster.sync();  // every block's lists are complete and visible
+
+  // ---- selection: warp w of block r takes bins r + split * (w + kWarps i)
+  const int warp = tid >> 5;
+  unsigned long long* buf = reinterpret_cast<unsigned long long*>(region) + warp * kSortCap;
+  const int64_t out = (int64_t)qi * steps;
+  for (int j = rank + a.split * warp; j < steps; j += a.split * kWarps) {
+    BinList lists[kMaxSplit];
+    int total = 0;
+    for (int r = 0; r < a.split; ++r) {
+      const int* h = cluster.map_shared_rank(hist, r);
+      total += h[j];
+      lists[r].list = cluster.map_shared_rank(slist, r);
+      lists[r].keys = cluster.map_shared_rank(skey, r);
+      lists[r].off = h[3 * steps + j];
+      lists[r].m = h[steps + j];
+    }
+    if ((tid & 31) == 0) a.cnt[out + j] = total;
+    select_bin(lists, a.split, a.ks, a.n, buf, a.bd + (out + j) * a.ks,
+               a.bi + (out + j) * a.ks);
+  }
+  cluster.sync();  // no block leaves while another reads its lists
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kFusedThreads, 2) fused_window_search_kernel(const Args a) {
+  search_body<kMode, true>(a);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kFusedThreads, 2) fused_cand_search_kernel(const Args a) {
+  search_body<kMode, false>(a);
 }
 
 // The instantiation of a kernel template for a wrapper's mode number.
@@ -251,14 +749,81 @@ Kernel pick(int mode, Kernel norm, Kernel exact, Kernel bf16, Kernel int8) {
   }
 }
 
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 1;
+  }
+  return count;
+}
+
+// Blocks per query: the largest power of two up to kMaxSplit with
+// Q * split within the SM count (and no more blocks than units of work).
+int pick_split(int Q, int units) {
+  int split = 1;
+  while (split < kMaxSplit && 2 * split <= units && (int64_t)Q * split * 2 <= sm_count())
+    split *= 2;
+  return split;
+}
+
+// Fill the plan's fields of `a` and launch `kernel` with `split` blocks a
+// query, `cap` slots at most per block.
+template <typename Kernel>
+int launch(Kernel kernel, Args a, int mode, int Q, int cap, cudaStream_t stream) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const bool once = (int64_t)Q * a.split <= sm_count();
+  const Plan p = plan(mode, a.steps, a.L, a.K, a.d, a.S, cap,
+                      once ? kStageBudgetOnce : kStageBudget);
+  if (p.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.rows = p.rows;
+  a.xstride = p.xstride;
+  a.pvec = a.K % 2 == 0 && reinterpret_cast<uintptr_t>(a.proj) % 8 == 0;
+  a.kp = a.pvec ? a.K : p.kp;
+  a.xvec = (a.d * x_bytes(mode)) % 16 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  a.o_g = (int)p.o_g;
+  a.o_q = (int)p.o_q;
+  a.o_qp = (int)p.o_qp;
+  a.o_blk = (int)p.o_blk;
+  a.o_hist = (int)p.o_hist;
+  a.o_key = (int)p.o_key;
+  a.o_bin = (int)p.o_bin;
+  a.o_list = (int)p.o_list;
+  a.o_rows = (int)p.o_rows;
+  a.o_region = (int)p.o_region;
+  a.buf_bytes = (int)p.buf_bytes;
+  a.b_proj = (int)p.b_proj;
+  a.b_nrm = (int)p.b_nrm;
+  a.b_id = (int)p.b_id;
+  a.b_xs = (int)p.b_xs;
+  const int err = prepare(kernel, p.total);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(Q * a.split));
+  cfg.blockDim = dim3(kFusedThreads);
+  cfg.dynamicSmemBytes = p.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of either kernel asks for (in every
-// mode: the quantized query is staged widened to 4-byte words).
-size_t fused_search_smem_bytes(int steps, int LK, int d, int C) {
-  return stage_bytes(steps, LK, d, C);
+// Dynamic shared memory one block of either kernel asks for when it holds
+// a query's whole pool of C slots (S: B1's selected blocks, 0 for B2).  A
+// launch that splits a query over a cluster asks for less.
+size_t fused_search_smem_bytes(int mode, int steps, int L, int K, int d, int C, int S) {
+  return plan(mode, steps, L, K, d, S, C, kStageBudgetOnce).total;
 }
 
 const char* fused_search_error_string(int err) {
@@ -275,16 +840,38 @@ int fused_window_search_launch(const int* blk, const float* halves, const float*
                                int* cnt, int Q, int S, int M, int lnb, int B, int K, int d,
                                int L, int steps, int ks, int n, int mode,
                                cudaStream_t stream) {
-  const size_t smem = stage_bytes(steps, L * K, d, S * B);
-  auto kernel = pick(mode, fused_window_search_kernel<kNorm>,
-                     fused_window_search_kernel<kExact>, fused_window_search_kernel<kBf16>,
-                     fused_window_search_kernel<kInt8>);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const int err = prepare(kernel, smem);
-  if (err != 0) return err;
-  kernel<<<Q, kThreads, smem, stream>>>(blk, halves, proj, x, nrm, ids, g, qv, q2, qs, xs,
-                                        bd, bi, cnt, S, M, lnb, B, K, d, L, steps, ks, n);
-  return (int)cudaGetLastError();
+  Args a = {};
+  a.blk = blk;
+  a.proj = proj;
+  a.x = x;
+  a.nrm = nrm;
+  a.ids = ids;
+  a.xs = xs;
+  a.halves = halves;
+  a.g = g;
+  a.qv = qv;
+  a.q2 = q2;
+  a.qs = qs;
+  a.bd = bd;
+  a.bi = bi;
+  a.cnt = cnt;
+  a.S = S;
+  a.M = M;
+  a.lnb = lnb;
+  a.B = B;
+  a.Ct = 1;
+  a.C = S * B;
+  a.L = L;
+  a.K = K;
+  a.d = d;
+  a.steps = steps;
+  a.ks = ks;
+  a.n = n;
+  a.split = pick_split(Q, S);
+  const int cap = ((S + a.split - 1) / a.split) * B;
+  return launch(pick(mode, fused_window_search_kernel<kNorm>, fused_window_search_kernel<kExact>,
+                     fused_window_search_kernel<kBf16>, fused_window_search_kernel<kInt8>),
+                a, mode, Q, cap, stream);
 }
 
 int fused_cand_search_launch(const float* cproj, const void* cx, const float* cnrm,
@@ -293,15 +880,36 @@ int fused_cand_search_launch(const float* cproj, const void* cx, const float* cn
                              const float* cscale, float* bd, int* bi, int* cnt, int Q,
                              int L, int Ct, int K, int d, int steps, int ks, int n,
                              int mode, cudaStream_t stream) {
-  const size_t smem = stage_bytes(steps, L * K, d, L * Ct);
-  auto kernel = pick(mode, fused_cand_search_kernel<kNorm>, fused_cand_search_kernel<kExact>,
-                     fused_cand_search_kernel<kBf16>, fused_cand_search_kernel<kInt8>);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const int err = prepare(kernel, smem);
-  if (err != 0) return err;
-  kernel<<<Q, kThreads, smem, stream>>>(cproj, cx, cnrm, cids, halves, g, qv, q2, qs,
-                                        cscale, bd, bi, cnt, L, Ct, K, d, steps, ks, n);
-  return (int)cudaGetLastError();
+  Args a = {};
+  a.proj = cproj;
+  a.x = cx;
+  a.nrm = cnrm;
+  a.ids = cids;
+  a.xs = cscale;
+  a.halves = halves;
+  a.g = g;
+  a.qv = qv;
+  a.q2 = q2;
+  a.qs = qs;
+  a.bd = bd;
+  a.bi = bi;
+  a.cnt = cnt;
+  a.S = 0;
+  a.M = 1;
+  a.B = 1;
+  a.Ct = Ct;
+  a.C = L * Ct;
+  a.L = L;
+  a.K = K;
+  a.d = d;
+  a.steps = steps;
+  a.ks = ks;
+  a.n = n;
+  a.split = pick_split(Q, a.C);
+  const int cap = (a.C + a.split - 1) / a.split;
+  return launch(pick(mode, fused_cand_search_kernel<kNorm>, fused_cand_search_kernel<kExact>,
+                     fused_cand_search_kernel<kBf16>, fused_cand_search_kernel<kInt8>),
+                a, mode, Q, cap, stream);
 }
 
 }  // extern "C"

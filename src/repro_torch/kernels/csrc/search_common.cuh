@@ -4,10 +4,12 @@
 // One copy of each helper is what makes the one-pass search with
 // exact=True bit-equal to the multi-pass oracle inside the port: both
 // paths stage q in shared memory with `stage`, compute a slot's diff-form
-// d2 with the same `slot_d2<true>` fmaf chain, and select with the same
-// `warp_select` rule, so one point yields the same (d2, id) pair in every
-// kernel.  The quantized distances of B3 (`slot_d2_q`, modes bf16 and
-// int8 of B1/B2) are separate overloads and leave that chain alone.
+// d2 with the same `slot_d2<true>` fmaf chain, and select by the same
+// rule (the distinct lexicographic top-k of `warp_select`), so one point
+// yields the same (d2, id) pair in every kernel.  B1/B2 (and B3, their
+// quantized modes) read their rows from shared memory, where they stage
+// them, run the same chains there (fused_search.cu's staged_d2, with
+// dequant_d2 below for B3) and select by sorting each bin's pairs.
 
 #pragma once
 
@@ -68,26 +70,6 @@ enum Mode : int { kNorm = 0, kExact = 1, kBf16 = 2, kInt8 = 3 };
 __device__ inline float dequant_d2(float dot, float nrm, float q2, float xs, float qs) {
   const float t = __fmul_rn(__fmul_rn(xs, qs), dot);
   return fmaxf(__fadd_rn(__fsub_rn(nrm, __fmul_rn(2.0f, t)), q2), 0.0f);
-}
-
-// B3, bf16 mode: the query is staged widened to float; a bf16 x bf16
-// product is exact in float32, so this fmaf chain is a bf16 dot with
-// float32 accumulation (the reference's, up to summation order).
-__device__ inline float slot_d2_q(const __nv_bfloat16* __restrict__ x, const float* qf,
-                                  int d, float nrm, float q2, float xs, float qs) {
-  float acc = 0.0f;
-  for (int i = 0; i < d; ++i) acc = fmaf(__bfloat162float(__ldg(x + i)), qf[i], acc);
-  return dequant_d2(acc, nrm, q2, xs, qs);
-}
-
-// B3, int8 mode: the query is staged widened to int; the dot accumulates
-// in int32, exact and independent of order (|dot| <= 127^2 d, exact in
-// float32 for d <= 1040).  Byte loads: any d, any row alignment.
-__device__ inline float slot_d2_q(const int8_t* __restrict__ x, const int* qi, int d,
-                                  float nrm, float q2, float xs, float qs) {
-  int acc = 0;
-  for (int i = 0; i < d; ++i) acc += (int)__ldg(x + i) * qi[i];
-  return dequant_d2((float)acc, nrm, q2, xs, qs);
 }
 
 // Lexicographic (d, id) "a < b".

@@ -109,9 +109,13 @@ def _query_operands(q: torch.Tensor, mode: str):
     return qv.contiguous(), q2, None if qs is None else qs.reshape(-1).contiguous()
 
 
-def _prepare(lib, steps: int, LK: int, d: int, C: int, ks: int, n: int):
-    """Shape guards shared by both fused kernels."""
-    _check_smem(lib.fused_search_smem_bytes(steps, LK, d, C), C)
+def _prepare(lib, mode: str, steps: int, L: int, K: int, d: int, C: int, S: int,
+             ks: int, n: int):
+    """Shape guards shared by both fused kernels (S: B1's selected blocks
+    per query, 0 for B2): the query's whole pool must fit one block's
+    shared memory."""
+    smem = lib.fused_search_smem_bytes(_MODES.index(mode), steps, L, K, d, C, S)
+    _check_smem(smem, C)
     _check_k(ks, n)
 
 
@@ -198,7 +202,7 @@ def fused_window_search(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,
     if x_scale is not None:
         _check("x_scale", x_scale, f32, (lnb, B))
     lib = _build.load()
-    _prepare(lib, steps, L * K, d, S * B, ks, n)
+    _prepare(lib, mode, steps, L, K, d, S * B, S, ks, n)
     bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
     if Qn == 0:
         return bd, bi, cnt
@@ -249,7 +253,7 @@ def fused_cand_search(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q, *,
     if cand_scale is not None:
         _check("cand_scale", cand_scale, f32, (Qn, L, Ct))
     lib = _build.load()
-    _prepare(lib, steps, L * K, d, L * Ct, ks, n)
+    _prepare(lib, mode, steps, L, K, d, L * Ct, 0, ks, n)
     bd, bi, cnt = _outputs(Qn, steps, ks, q.device)
     if Qn == 0:
         return bd, bi, cnt

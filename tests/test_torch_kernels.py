@@ -500,6 +500,186 @@ def test_kernel_rejects_oversized_pool(cuda):
         fused_cand_search(*_t(args, cuda), ks=5, n=n)
 
 
+# The fused kernels' edges: bins sorted in registers and in chunks, the
+# bucketing, the staging tiles, the element loads, the launch shapes.
+# Integer-valued vectors and projections make every float32 sum exact, so
+# the kernels equal their twins bit for bit in every mode (bf16 rounds
+# small integers exactly; int8's dot is exact by construction).
+
+def _int_proj(rng, g, Ct_shape, bins):
+    """Projections around g: 'spread' over the schedule's bins, 'one'
+    (hw = 0: every slot in bin 0), 'none' (outside every window)."""
+    if bins == "one":
+        return np.broadcast_to(g, Ct_shape).astype(np.float32).copy()
+    if bins == "none":
+        return (g + 1000.0).astype(np.float32) + np.zeros(Ct_shape, np.float32)
+    return (g + rng.integers(-3, 4, Ct_shape) * 0.25).astype(np.float32)
+
+
+def _int_cand(seed, Q, L, Ct, K, d, steps, *, vals=2, bins="spread", dup=False, n=4096):
+    """Gathered candidates with integer vectors in [-vals, vals]; dup: every
+    table holds the same Ct points (same rows, same ids) in its own order,
+    so each point sits in L slots of one query."""
+    rng = np.random.default_rng(seed)
+    if dup:
+        pts = rng.integers(-vals, vals + 1, (Q, Ct, d)).astype(np.float32)
+        pid = np.stack([rng.choice(n, Ct, replace=False) for _ in range(Q)]).astype(np.int32)
+        perm = np.stack([[rng.permutation(Ct) for _ in range(L)] for _ in range(Q)])
+        qq = np.arange(Q)[:, None, None]
+        cx, ci = pts[qq, perm], pid[qq, perm]
+    else:
+        cx = rng.integers(-vals, vals + 1, (Q, L, Ct, d)).astype(np.float32)
+        ci = rng.integers(0, n, (Q, L, Ct)).astype(np.int32)
+    g = rng.integers(-4, 5, (Q, L, 1, K)).astype(np.float32)
+    cp = _int_proj(rng, g, (Q, L, Ct, K), bins)
+    cn = np.sum(cx * cx, axis=-1).astype(np.float32)
+    if bins == "spread":
+        cp[:, :, ::7, :] = np.inf
+        cn[:, :, ::7] = np.inf
+    return (cp, np.ascontiguousarray(cx), cn, np.ascontiguousarray(ci), _halves(steps),
+            np.ascontiguousarray(g[:, :, 0]), rng.integers(-vals, vals + 1, (Q, d)).astype(
+                np.float32)), n
+
+
+def _int_window(seed, Q, L, M, nb, B, K, d, steps, *, vals=2, bins="spread"):
+    """STR blocks with integer vectors; each table holds every point once
+    (so with M == nb each point sits in L selected blocks); block ids
+    include the invalid sentinel L*nb where bins == 'spread'."""
+    rng = np.random.default_rng(seed)
+    lnb, n = L * nb, nb * B
+    data = rng.integers(-vals, vals + 1, (n, d)).astype(np.float32)
+    ids = np.concatenate([rng.permutation(n) for _ in range(L)]).reshape(lnb, B)
+    ids = ids.astype(np.int32)
+    vec = data[ids]
+    nrm = np.sum(vec * vec, axis=-1).astype(np.float32)
+    g = rng.integers(-4, 5, (Q, L, K)).astype(np.float32)
+    # each block's projections around table 0's query projection of query 0
+    proj = _int_proj(rng, g[0, 0], (lnb, B, K), bins)
+    if bins != "spread":
+        blk = np.stack([np.concatenate([rng.permutation(nb)[:M] + l * nb for l in range(L)])
+                        for _ in range(Q)])
+    else:
+        blk = rng.integers(0, lnb + 1, (Q, L * M))
+    g[:] = g[0, 0]  # every query and table shares the blocks' centre
+    return (blk.astype(np.int32), _halves(steps), proj, vec, nrm, ids, g,
+            rng.integers(-vals, vals + 1, (Q, d)).astype(np.float32)), n
+
+
+def _fused_bits(kind, args, n, mode, ks, device, M=None, misalign=False):
+    """The kernel on ``device`` against its twin on the same tensors: every
+    output equal bit for bit.  Returns the kernel's outputs."""
+    x_idx = 3 if kind == "window" else 1
+    if mode in ("bf16", "int8"):
+        targs, scale = _quantize_case(args, x_idx, mode)
+        scale = scale.to(device)
+    else:
+        targs, scale = _t(args), None
+    targs = [a.to(device) for a in targs]
+    if misalign:
+        targs[x_idx] = _misaligned(targs[x_idx])
+        assert targs[x_idx].data_ptr() % 16 != 0
+    if kind == "window":
+        kw = dict(M=M, ks=ks, n=n, mode=mode, x_scale=scale)
+        wrapper, ref = fused_window_search, twin.fused_window_search_ref
+    else:
+        kw = dict(ks=ks, n=n, mode=mode, cand_scale=scale)
+        wrapper, ref = fused_cand_search, twin.fused_cand_search_ref
+    before = launches[wrapper.__name__]
+    got = wrapper(*targs, **kw)
+    torch.cuda.synchronize()
+    assert launches[wrapper.__name__] == before + 1
+    want = ref(*targs, **kw)
+    for name, a, b in zip(("bins_d", "bins_i", "cnt"), got, want):
+        assert torch.equal(a, b), name
+    return got
+
+
+FUSED_MODES = ["norm", "exact", "bf16", "int8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("ks", [10, 40])
+def test_fused_kernels_dedup_across_tables(cuda, mode, ks):
+    """Every point in L = 5 slots of its query, 120 or 128 distinct points
+    per bin (more than ks, and 600 or 640 slots: past one 512-key buffer,
+    so the bin is cut more than once); each bin keeps each id once."""
+    for kind, args, n, M in (
+            ("cand", *_int_cand(ks, 3, 5, 120, 6, 16, 4, bins="one", dup=True), None),
+            ("window", *_int_window(ks + 1, 3, 5, 4, 4, 32, 6, 16, 4, bins="one"), 4)):
+        bd, bi, cnt = _fused_bits(kind, args, n, mode, ks, cuda, M=M)
+        assert bool((cnt[:, 0] == (600 if kind == "cand" else 640)).all())
+        for row_d, row_i in zip(bd.reshape(-1, ks).cpu(), bi.reshape(-1, ks).cpu()):
+            kept = row_i[torch.isfinite(row_d)].tolist()
+            assert len(kept) == len(set(kept))
+        assert bool(torch.isfinite(bd[:, 0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("kind", ["cand", "window"])
+def test_fused_kernels_ties_on_d2(cuda, mode, kind):
+    """Vectors in {-1, 0, 1}^4: few distinct distances, many ids on each;
+    ties resolve to the smallest ids, as in the twin."""
+    if kind == "cand":
+        args, n = _int_cand(5, 4, 3, 200, 4, 4, 6, vals=1)
+        _fused_bits(kind, args, n, mode, 40, cuda)
+    else:
+        args, n = _int_window(6, 4, 3, 5, 8, 40, 4, 4, 6, vals=1)
+        _fused_bits(kind, args, n, mode, 40, cuda, M=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("ks", [10, 40, 490])
+def test_fused_kernels_one_big_bin(cuda, mode, ks):
+    """Every slot in bin 0, 3,000 of them (many 512-key buffers), and
+    ks = 490, past the buffer's room, which takes the argmin rounds."""
+    args, n = _int_cand(ks + 2, 2, 5, 600, 10, 8, 8, vals=6, bins="one")
+    bd, _, cnt = _fused_bits("cand", args, n, mode, ks, cuda)
+    assert bool((cnt[:, 0] == 3000).all()) and bool((cnt[:, 1:] == 0).all())
+    assert bool(torch.isinf(bd[:, 1:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+def test_fused_kernels_every_slot_outside(cuda, mode):
+    """No slot in any window: counts 0, every bin unfilled (+inf, n)."""
+    for kind, args, n, M in (("cand", *_int_cand(7, 3, 4, 90, 6, 8, 5, bins="none"), None),
+                             ("window", *_int_window(8, 3, 2, 3, 6, 32, 6, 8, 5,
+                                                     bins="none"), 3)):
+        bd, bi, cnt = _fused_bits(kind, args, n, mode, 12, cuda, M=M)
+        assert bool((cnt == 0).all()) and bool(torch.isinf(bd).all()) and bool((bi == n).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("d", [33, 12, 64])
+@pytest.mark.parametrize("misalign", [False, True])
+def test_fused_kernels_ragged_tiles_and_element_loads(cuda, mode, d, misalign):
+    """C not a multiple of the staging tile (B2: 3 x 101 slots; B1: blocks
+    of 24 rows), d % 4 != 0 or rows not whole 16-byte chunks (d = 33, and
+    d = 12 in bf16/int8) and x bases one element into their buffers: the
+    element loads, the same values in the same order."""
+    args, n = _int_cand(d, 5, 3, 101, 7, d, 6)
+    _fused_bits("cand", args, n, mode, 20, cuda, misalign=misalign)
+    args, n = _int_window(d + 1, 5, 3, 7, 9, 24, 7, d, 6)
+    _fused_bits("window", args, n, mode, 20, cuda, M=7, misalign=misalign)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FUSED_MODES)
+@pytest.mark.parametrize("Q", [1, 5, 64, 200])
+def test_fused_kernels_launch_shapes(cuda, mode, Q):
+    """The main path's shape (L = 5, M = 5, B = 64, K = 10, d = 64, steps
+    8; ks = 40 as the quantized shortlist) at Q below 132 (a cluster of 4
+    or 2 blocks per query) and above (one block)."""
+    args, n = _int_window(Q, Q, 5, 5, 12, 64, 10, 64, 8, vals=3)
+    _fused_bits("window", args, n, mode, 40, cuda, M=5)
+    args, n = _int_cand(Q + 1, Q, 5, 320, 10, 64, 8, vals=3)
+    _fused_bits("cand", args, n, mode, 40, cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", VERIFY_CAND_SHAPES)
 def test_candidate_verify_kernel_matches_twin(cuda, shape):

@@ -41,7 +41,7 @@ Phases, each printing a line (with its seconds) when it passes:
                  recall@10 >= 0.5, the kernel engines' id sets equal the
                  torch engine's up to near-ties at the k-th distance, stats
                  equal across engines, and B6/B7 against their twins on the
-                 path's own inputs;
+                 path's own inputs at 64 and 1024 queries;
 5. oracle      — a small index (n = 2048, d = 24, K = 8, L = 3, max_blocks
                  == nb): one-pass exact=True equals the multi-pass oracle
                  bit for bit on the kernel and inline engines, at steps
@@ -90,9 +90,9 @@ Phases, each printing a line (with its seconds) when it passes:
                  the 10th distance, the bf16 id overlap printed;
 11. times      — median CUDA-event times of each kernel (B3 per mode) and
                  its twin at the shapes its path gives it, with the
-                 profiler's device time, beside the least time the card
-                 could take (B1/B2/B3 and B4/B5/B8 at both batches, B6/B7
-                 at 64 queries; for B8 also torch.cdist and
+                 profiler's device time (and, for B6/B7, the host time of
+                 a call), beside the least time the card could take (every
+                 kernel at both batches; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
                  ratios); median wall times
                  of the one-pass search, the
@@ -505,24 +505,62 @@ def work(torch, name: str, a: tuple, k: dict):
     return in_bytes, out_bytes, ops, ops / FP32_FLOPS * 1e3
 
 
-def device_us(torch, fn, kernel: str, calls: int = 5) -> float:
+def device_us(torch, fn, kernel: str, calls: int = 5, sessions: int = 3) -> tuple[float, str]:
     """Device microseconds of one launch of the kernel whose name contains
-    ``kernel`` (``fn`` launches it once): the median over the records of
-    ``calls`` profiled calls, after a warm-up call.  A trace can lose a
-    call's device records, so the median is over the records there are;
-    none at all fails the run."""
+    ``kernel`` (``fn`` launches it once), and how they were taken: the
+    median over the records of ``calls`` profiled calls, after a warm-up
+    call.  A trace can lose a call's device records, and now and then all
+    of a session's, so a session with none is taken again, up to
+    ``sessions`` times; if every session lost them, the time is that of
+    ``queued_us`` and says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.self_device_time_total for e in prof.events()
+                 if e.device_type.name == "CUDA" and kernel in e.name]
+        if times:
+            return statistics.median(times), "profiler"
+    return queued_us(torch, fn, calls), f"CUDA events; the profiler kept no record of {kernel}"
+
+
+def queued_us(torch, fn, calls: int = 5) -> float:
+    """Device microseconds of one call, timed without the profiler: each
+    call's pair of CUDA events is queued behind a ~2.5 ms spin on the card,
+    so the host has enqueued the call before the card reaches it and the
+    pair holds the call's device work (all of its kernels) and no host
+    time.  Median over ``calls`` calls, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        fn()
+        end.record()
         torch.cuda.synchronize()
-    times = [e.self_device_time_total for e in prof.events()
-             if e.device_type.name == "CUDA" and kernel in e.name]
-    check(bool(times), f"profile: no device record of {kernel} in {calls} calls")
+        times.append(start.elapsed_time(end) * 1e3)
     return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds of one call: ``time.perf_counter`` over ``calls``
+    calls with no synchronisation inside the loop (the launches queue on
+    the card), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
 
 
 def stage_ms(events, on_card, stages) -> dict:
@@ -999,17 +1037,23 @@ def main() -> int:
               f"{onepass_recall[engine]:.4f}), id sets equal to torch's: {same:.4f}, "
               f"mean candidates {float(stats['candidates'].float().mean()):.1f}", flush=True)
         check(recall >= 0.5, f"multi-pass {engine}: recall@{K_NN} {recall} < 0.5")
-    for name, engine in (("window_verify", "inline"), ("candidate_verify", "kernel")):
-        captured[name] = capture_calls(
+    # B6/B7 on the path's own inputs at both batches (the Q = 1024 ones
+    # under "<wrapper>@1024"), against their twins
+    for (name, engine), (Qn, Qb) in itertools.product(
+            (("window_verify", "inline"), ("candidate_verify", "kernel")),
+            ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k))):
+        key = name if Qn == N_QUERIES else f"{name}@{Qn}"
+        captured[key] = capture_calls(
             kernels, wrappers, name,
-            lambda: search_batch_fixed_ref(index, Q64, engine=engine, **kw))
-        a, k = captured[name]
+            lambda: search_batch_fixed_ref(index, Qb, engine=engine, **kw))
+        a, k = captured[key]
         err = topk_err(torch, wrappers[name](*a, **k), twins[name](*a, **k), k["n"],
                        edge_ties=True)
         max_err[name] = max(max_err[name], err)
     torch.cuda.synchronize()
-    print(f"[multipass] ok: B6/B7 agree with their twins on the path's inputs "
-          f"(rtol = atol = 1e-5); max |err| {max_err} ({phase_s():.1f} s)", flush=True)
+    print(f"[multipass] ok: B6/B7 agree with their twins on the path's inputs at Q = "
+          f"{N_QUERIES} and {N_QUERIES_LARGE} (rtol = atol = 1e-5); max |err| {max_err} "
+          f"({phase_s():.1f} s)", flush=True)
 
     # --------------------------------- 5. one-pass vs the multi-pass oracle
     small_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1443,18 +1487,19 @@ def main() -> int:
     path_launches = {**{n_: onepass_launches[n_] for n_ in FUSED},
                      **{n_: multi_launches[n_] for n_ in VERIFY}}
     path_launches.update(quant_launches)
-    # B1/B2 and each B3 instantiation at both batches (path_launches and
-    # max_abs_err are the kernel's, over the batches), B6/B7 at Q = 64
+    # B1/B2, B6/B7 and each B3 instantiation at both batches (path_launches
+    # and max_abs_err are the kernel's, over the batches)
     timed = [(name, name, *KERNELS[name], captured[name]) for name in (*FUSED, *VERIFY)]
     timed += [(f"{name}@{N_QUERIES_LARGE}", name, *KERNELS[name],
-               captured[f"{name}@{N_QUERIES_LARGE}"]) for name in FUSED]
+               captured[f"{name}@{N_QUERIES_LARGE}"]) for name in (*FUSED, *VERIFY)]
     timed += [(name + sfx, w, KERNELS[w][0], B3_REPLACES, captured_b3[name + sfx])
               for sfx in ("", f"@{N_QUERIES_LARGE}") for name, (w, _) in B3.items()]
     for name, wrapper, source, replaces, (a, k) in timed:
         base = name.split("@")[0]
         ms = cuda_ms(torch, lambda: wrappers[wrapper](*a, **k), iters=50)
         plain_ms = cuda_ms(torch, lambda: twins[wrapper](*a, **k), iters=5)
-        dev_us = device_us(torch, lambda: wrappers[wrapper](*a, **k), f"{wrapper}_kernel")
+        dev_us, dev_how = device_us(torch, lambda: wrappers[wrapper](*a, **k),
+                                    f"{wrapper}_kernel")
         in_bytes, out_bytes, ops, ops_ms = work(torch, wrapper, a, k)
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1465,8 +1510,10 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None,
         })
         q_rows = a[-2] if wrapper in VERIFY else a[7 if wrapper == "fused_window_search" else 6]
+        host = (f"host {host_us(torch, lambda: wrappers[wrapper](*a, **k)):.1f} us/call; "
+                if wrapper in VERIFY else "")
         print(f"[times] {name}: median {ms:.4f} ms/launch at Q={q_rows.shape[0]} "
-              f"(device {dev_us:.1f} us; twin {plain_ms:.3f} "
+              f"(device {dev_us:.1f} us by {dev_how}; {host}twin {plain_ms:.3f} "
               f"ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
               f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)", flush=True)
 
@@ -1484,7 +1531,8 @@ def main() -> int:
     for name, wrapper, (a, k), count in extra:
         ms = cuda_ms(torch, lambda: wrappers[wrapper](*a, **k), iters=50)
         plain_ms = cuda_ms(torch, lambda: twins[wrapper](*a, **k), iters=5)
-        dev_us = device_us(torch, lambda: wrappers[wrapper](*a, **k), f"{wrapper}_kernel")
+        dev_us, dev_how = device_us(torch, lambda: wrappers[wrapper](*a, **k),
+                                    f"{wrapper}_kernel")
         in_bytes, out_bytes, ops, ops_ms = work(torch, wrapper, a, k)
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1503,8 +1551,8 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": bound_by, "library_ms": library_ms,
         })
-        print(f"[times] {name}: median {ms:.4f} ms/launch (device {dev_us:.1f} us; twin "
-              f"{plain_ms:.3f} ms{lib_note}), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by "
+        print(f"[times] {name}: median {ms:.4f} ms/launch (device {dev_us:.1f} us by {dev_how}; "
+              f"twin {plain_ms:.3f} ms{lib_note}), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by "
               f"{bound_by} ({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)",
               flush=True)
 
@@ -1546,7 +1594,7 @@ def main() -> int:
     kernel_re = re.compile(r"(\w+)_kernel(?:<(?:\(int\))?(\d)>)?")
     mode_names = ("norm", "exact", *QUANT)
     unattributed = []  # (row, stage): a stage that ran but reads no device time
-    lost = []  # rows whose two traces held different numbers of device ops
+    lost = []  # rows whose traces held different numbers of device ops
     for path in ("onepass", "multipass", *QUANT):
         for Qn, Qb in ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k)):
             for engine in engines:
@@ -1554,9 +1602,10 @@ def main() -> int:
                 torch.cuda.synchronize()
                 # two profiled calls: a trace can lose the device records of
                 # a run of kernels (its op count and busy time drop
-                # together), so the one holding more device ops is kept
+                # together), so the one holding more device ops is kept; up
+                # to two more when that one reads no device time for a stage
                 traces = []
-                for _ in range(2):
+                for attempt in range(4):
                     with profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
@@ -1569,13 +1618,16 @@ def main() -> int:
                     on_card = [e for e in events
                                if e.device_type.name == "CUDA" and e.name not in stages]
                     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-                    traces.append((len(on_card), busy_ms, prof_ms, events, on_card))
+                    traces.append((len(on_card), busy_ms, prof_ms, on_card,
+                                   stage_ms(events, on_card, stages)))
+                    best = max(traces, key=lambda tr: tr[0])
+                    if attempt >= 1 and all(best[4][key] for key in ("select", "verify", "merge")):
+                        break
                 row = f"{path} Q={Qn} {engine}"
-                if traces[0][0] != traces[1][0]:
-                    lost.append(f"{row}: {traces[0][0]} / {traces[1][0]} ops, "
-                                f"{traces[0][1]:.3f} / {traces[1][1]:.3f} busy ms")
-                _, busy_ms, prof_ms, events, on_card = max(traces, key=lambda tr: tr[0])
-                span_ms = stage_ms(events, on_card, stages)
+                if len({tr[0] for tr in traces}) > 1:
+                    lost.append(f"{row}: " + " / ".join(str(tr[0]) for tr in traces) + " ops, "
+                                + " / ".join(f"{tr[1]:.3f}" for tr in traces) + " busy ms")
+                _, busy_ms, prof_ms, on_card, span_ms = best
                 unattributed += [(row, key) for key in ("select", "verify", "merge")
                                  if not span_ms[key]]
                 by_name = {}
@@ -1602,7 +1654,7 @@ def main() -> int:
                       f"{ours}; top: "
                       + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top), flush=True)
     check(not unattributed, f"profile: stages that ran read no device time: {unattributed}")
-    print(f"[profile] rows whose two traces differ in device ops (the larger kept): "
+    print(f"[profile] rows whose traces differ in device ops (the largest kept): "
           f"{lost or 'none'}", flush=True)
     print(f"[profile] ok ({phase_s():.1f} s); the whole run took "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

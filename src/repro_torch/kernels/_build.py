@@ -36,7 +36,7 @@ _SIGNATURES = {
     "fused_search_error_string": ((_I,), ctypes.c_char_p),
     "fused_window_search_launch": ((_P,) * 14 + (_I,) * 12 + (_P,), _I),
     "fused_cand_search_launch": ((_P,) * 13 + (_I,) * 9 + (_P,), _I),
-    "verify_smem_bytes": ((_I, _I, _I), ctypes.c_size_t),
+    "verify_smem_bytes": ((_I,) * 5, ctypes.c_size_t),
     "window_verify_launch": ((_P,) * 6 + (_F,) + (_P,) * 2 + (_I,) * 8 + (_P,), _I),
     "candidate_verify_launch": ((_P,) * 5 + (_F,) + (_P,) * 2 + (_I,) * 6 + (_P,), _I),
     "dist_smem_bytes": ((_I, _I), ctypes.c_size_t),

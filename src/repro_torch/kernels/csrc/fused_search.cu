@@ -66,9 +66,10 @@
 //     them (two 32-bit `redux` minima a round), a repeated key once.  The
 //     result, the ks smallest distinct finite pairs, does not depend on
 //     the order in which the scatter filled the lists, so the outputs are
-//     deterministic: warp_select's result (search_common.cuh), bit for
-//     bit.  A bin width ks > 480 (the buffer could not take a warp's keys
-//     beside the kept ones) takes ks argmin rounds over the bin's list;
+//     deterministic.  A bin width ks > 480 (the buffer could not take a
+//     warp's keys beside the kept ones) takes ks argmin rounds over the
+//     bin's list.  Both are search_common.cuh's warp_topk, the rule B6/B7
+//     select by;
 //   * block bases use 64-bit element offsets (the main path addresses
 //     3.2e8 floats of vec_blocks).
 
@@ -84,22 +85,16 @@ using namespace dblsh;
 
 constexpr int kFusedThreads = 512;
 constexpr int kWarps = kFusedThreads / 32;
-constexpr int kSortLane = 16;                  // buffered keys a lane holds at most
-constexpr int kSortCap = 32 * kSortLane;       // keys one warp buffers per bin
-constexpr int kMaxSplit = 4;                   // blocks in a query's cluster
 // Bytes of the two stage buffers: a grid that fits the SMs once (one
 // block an SM) takes large stages; a larger grid smaller ones, so that two
 // blocks share an SM (the fastest of the sizes measured at Q = 64 / 1024).
 constexpr size_t kStageBudgetOnce = 160 * 1024;
 constexpr size_t kStageBudget = 96 * 1024;
-constexpr size_t kMaxSmem = 232448;            // a block's shared memory on Hopper
-constexpr unsigned long long kNoKey = ~0ull;   // above every (d2, id) key
 
 __host__ __device__ constexpr bool quantized(int mode) { return mode == kBf16 || mode == kInt8; }
 __host__ __device__ constexpr int x_bytes(int mode) {
   return mode == kBf16 ? 2 : mode == kInt8 ? 1 : 4;
 }
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
 // Everything a launch passes: the operands (B2 puts its gathered arrays in
 // the same fields), the shape, and the shared-memory plan.
@@ -157,15 +152,7 @@ size_t buffer_bytes(int rows, int xstride, int kp, Plan* p) {
 // the two stage buffers take at most `budget` bytes.
 Plan plan(int mode, int steps, int L, int K, int d, int S, int cap, size_t budget) {
   Plan p;
-  const int rowbytes = d * x_bytes(mode);
-  if (rowbytes % 16 == 0) {
-    // 16-byte reads by 8 threads of a quarter warp at a stride of
-    // 16 * (odd) bytes fall on distinct banks
-    p.xstride = rowbytes + ((rowbytes / 16) % 2 == 0 ? 16 : 32);
-  } else {
-    p.xstride = (rowbytes + 3) & ~3;
-    if ((p.xstride / 4) % 2 == 0) p.xstride += 4;  // an odd word stride
-  }
+  p.xstride = padded_stride(d * x_bytes(mode));
   p.kp = K | 1;  // the 4-byte path's odd stride; the 8-byte path's K is smaller
   size_t off = align16((size_t)steps * 4);
   p.o_g = off;
@@ -205,136 +192,7 @@ Plan plan(int mode, int steps, int L, int K, int d, int S, int cap, size_t budge
   return p;
 }
 
-// ------------------------------------------------------------- cp.async
-
-__device__ inline void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ inline void cp_async8(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-}
-
-__device__ inline void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ------------------------------------------------------ the slot's d2
-
-// d2 of one staged x row, in the order and with the operations of
-// slot_d2 / dequant_d2 (search_common.cuh).  vec: the row is whole
-// 16-byte chunks, read 16 bytes at a time, and so is the staged query;
-// else element by element.  qp: the int8 query packed (int8 mode).
-template <int kMode>
-__device__ inline float staged_d2(const char* xr, bool vec, const float* q, const int* qp,
-                                  int d, float nrm, float q2, float xs, float qs) {
-  if constexpr (kMode == kNorm || kMode == kExact) {
-    float acc = 0.0f;
-    const float* xf = reinterpret_cast<const float*>(xr);
-    if (vec) {
-      for (int i = 0; i < d; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(xf + i);
-        const float4 w = *reinterpret_cast<const float4*>(q + i);
-        const float e[4] = {v.x, v.y, v.z, v.w};
-        const float f[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if constexpr (kMode == kExact) {
-            const float t = e[u] - f[u];
-            acc = fmaf(t, t, acc);
-          } else {
-            acc = fmaf(e[u], f[u], acc);
-          }
-        }
-      }
-    } else {
-      for (int i = 0; i < d; ++i) {
-        if constexpr (kMode == kExact) {
-          const float t = xf[i] - q[i];
-          acc = fmaf(t, t, acc);
-        } else {
-          acc = fmaf(xf[i], q[i], acc);
-        }
-      }
-    }
-    if constexpr (kMode == kExact) return acc;
-    return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
-  } else if constexpr (kMode == kBf16) {
-    // q staged widened to float; a bf16 x bf16 product is exact in float32
-    float acc = 0.0f;
-    const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(xr);
-    if (vec) {
-      for (int i = 0; i < d; i += 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(xh + i);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        const float4 w0 = *reinterpret_cast<const float4*>(q + i);
-        const float4 w1 = *reinterpret_cast<const float4*>(q + i + 4);
-        const float f[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int u = 0; u < 8; ++u) acc = fmaf(__bfloat162float(e[u]), f[u], acc);
-      }
-    } else {
-      for (int i = 0; i < d; ++i) acc = fmaf(__bfloat162float(xh[i]), q[i], acc);
-    }
-    return dequant_d2(acc, nrm, q2, xs, qs);
-  } else {
-    // q staged widened to int, and packed; the int32 sum is exact in any
-    // order, so four-way dot products (dp4a) give the same value
-    const int* qi = reinterpret_cast<const int*>(q);
-    const int8_t* xb = reinterpret_cast<const int8_t*>(xr);
-    int acc = 0;
-    if (vec) {
-      for (int i = 0; i < d; i += 16) {
-        const int4 v = *reinterpret_cast<const int4*>(xb + i);
-        const int4 w = *reinterpret_cast<const int4*>(qp + i / 4);
-        acc = __dp4a(v.x, w.x, acc);
-        acc = __dp4a(v.y, w.y, acc);
-        acc = __dp4a(v.z, w.z, acc);
-        acc = __dp4a(v.w, w.w, acc);
-      }
-    } else {
-      for (int i = 0; i < d; ++i) acc += (int)xb[i] * qi[i];
-    }
-    return dequant_d2((float)acc, nrm, q2, xs, qs);
-  }
-}
-
 // --------------------------------------------------------- selection
-
-// (d2, id) as one 64-bit key whose unsigned order is the lexicographic
-// order of the pairs: the float's bits made monotonic, then the id with
-// its sign bit flipped.
-__device__ inline unsigned long long pair_key(float d, int id) {
-  unsigned u = __float_as_uint(d);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (unsigned)(id ^ INT_MIN);
-}
-
-__device__ inline float key_d2(unsigned long long key) {
-  const unsigned u = (unsigned)(key >> 32);
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-__device__ inline int key_id(unsigned long long key) { return (int)(unsigned)key ^ INT_MIN; }
-
-// The warp's smallest key: two single-instruction 32-bit reductions, on
-// the d2 half, then on the id half among the lanes holding that d2.
-__device__ inline unsigned long long warp_min_key(unsigned long long key) {
-  const unsigned hi = (unsigned)(key >> 32);
-  const unsigned mh = __reduce_min_sync(kFullMask, hi);
-  const unsigned ml = __reduce_min_sync(kFullMask, hi == mh ? (unsigned)key : 0xffffffffu);
-  return ((unsigned long long)mh << 32) | ml;
-}
 
 // One bin's list in one block of the cluster.
 struct BinList {
@@ -367,121 +225,12 @@ __device__ inline void for_keys(const BinList* lists, int nlist, F f) {
   }
 }
 
-// Run by one warp: write the (at most ks) smallest distinct keys among
-// the first nbuf <= 32*E keys of buf, ascending, to its front; returns how
-// many.  Each lane sorts its E keys (buf[e*32 + lane]) in registers; each
-// round then takes the warp-wide minimum of the lanes' smallest keys, and
-// every lane holding that key drops it, so a key repeated anywhere is
-// written once.
-template <int E>
-__device__ inline int take_smallest(unsigned long long* buf, int nbuf, int ks) {
-  const int lane = threadIdx.x & 31;
-  unsigned long long v[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int i = e * 32 + lane;
-    v[e] = i < nbuf ? buf[i] : kNoKey;
-  }
-  __syncwarp();
-  constexpr int kLog = E == 2 ? 1 : E == 4 ? 2 : E == 8 ? 3 : 4;
-#pragma unroll
-  for (int lk = 1; lk <= kLog; ++lk) {  // bitonic network over the registers
-#pragma unroll
-    for (int lj = lk - 1; lj >= 0; --lj) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int p = e ^ (1 << lj);
-        if (p > e) {
-          const bool up = (e & (1 << lk)) == 0;
-          const unsigned long long a = v[e], b = v[p];
-          if ((a > b) == up) {
-            v[e] = b;
-            v[p] = a;
-          }
-        }
-      }
-    }
-  }
-  int r = 0;
-  for (; r < ks; ++r) {
-    const unsigned long long best = warp_min_key(v[0]);
-    if (best == kNoKey) break;  // warp-uniform
-    if (lane == 0) buf[r] = best;
-    while (v[0] == best) {
-#pragma unroll
-      for (int e = 0; e + 1 < E; ++e) v[e] = v[e + 1];
-      v[E - 1] = kNoKey;
-    }
-  }
-  return r;
-}
-
 // Run by one warp: the ks smallest distinct keys of the bin, ascending,
 // to bd/bi; unfilled entries (+inf, fill).  buf: the warp's kSortCap keys.
 __device__ void select_bin(const BinList* lists, int nlist, int ks, int fill,
                            unsigned long long* buf, float* __restrict__ bd,
                            int* __restrict__ bi) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;
-  int ntop = 0;
-  if (ks <= kSortCap - 32) {
-    int nbuf = 0;
-    unsigned long long T = kNoKey;  // the ks-th kept key once ks are kept
-    // keep the buffer's ks smallest distinct keys at its front
-    auto flush = [&]() {
-      __syncwarp();
-      if (nbuf <= 64) {
-        ntop = take_smallest<2>(buf, nbuf, ks);
-      } else if (nbuf <= 128) {
-        ntop = take_smallest<4>(buf, nbuf, ks);
-      } else if (nbuf <= 256) {
-        ntop = take_smallest<8>(buf, nbuf, ks);
-      } else {
-        ntop = take_smallest<kSortLane>(buf, nbuf, ks);
-      }
-      nbuf = ntop;
-      __syncwarp();
-      T = ntop == ks ? buf[ks - 1] : kNoKey;
-    };
-    for_keys(lists, nlist, [&](unsigned long long key) {
-      bool take = key < T;
-      unsigned bal = __ballot_sync(kFullMask, take);
-      if (nbuf + __popc(bal) > kSortCap) {
-        flush();
-        take = key < T;
-        bal = __ballot_sync(kFullMask, take);
-      }
-      if (take) buf[nbuf + __popc(bal & lt)] = key;
-      nbuf += __popc(bal);
-    });
-    if (nbuf != ntop) flush();
-    __syncwarp();
-    for (int r = lane; r < ntop; r += 32) {
-      bd[r] = key_d2(buf[r]);
-      bi[r] = key_id(buf[r]);
-    }
-  } else {
-    // ks argmin rounds, each over the keys strictly above the last pick
-    unsigned long long last = 0;
-    for (; ntop < ks; ++ntop) {
-      unsigned long long best = kNoKey;
-      const bool any = ntop > 0;
-      for_keys(lists, nlist, [&](unsigned long long key) {
-        if ((!any || key > last) && key < best) best = key;
-      });
-      best = warp_min_key(best);
-      if (best == kNoKey) break;  // warp-uniform
-      if (lane == 0) {
-        bd[ntop] = key_d2(best);
-        bi[ntop] = key_id(best);
-      }
-      last = best;
-    }
-  }
-  for (int r = ntop + lane; r < ks; r += 32) {
-    bd[r] = INFINITY;
-    bi[r] = fill;
-  }
+  warp_topk([&](auto f) { for_keys(lists, nlist, f); }, ks, fill, buf, bd, bi);
 }
 
 // ----------------------------------------------------------- the body
@@ -576,22 +325,6 @@ __device__ inline void search_body(const Args& a) {
     const int nr = min(R, c1 - cb);
     for (int i = tid; i < nr; i += nt) rowtab[(t % 3) * R + i] = row_of(cb + i);
   };
-  // thread tid's copies of an (nr x w) grid of units, row-major: f(row, i, u)
-  auto copy_grid = [&](const int64_t* rt, int nr, int w, auto f) {
-    int i = tid / w, u = tid - i * w;
-    const int di = nt / w, du = nt - di * w;
-    for (;;) {
-      if (u >= w) {
-        u -= w;
-        ++i;
-      }
-      if (i >= nr) break;
-      const int64_t row = rt[i];
-      if (row >= 0) f(row, i, u);
-      i += di;
-      u += du;
-    }
-  };
   auto issue = [&](int t) {
     char* buf = region + (size_t)(t & 1) * a.buf_bytes;
     const int64_t* rt = rowtab + (t % 3) * R;
@@ -658,16 +391,7 @@ __device__ inline void search_body(const Args& a) {
         const int table = kWindow ? (c / B) / a.M : c / a.Ct;
         const float* p = sp + i * a.kp;
         const float* gq = sg + table * K;
-        float hw = 0.0f;
-        if (a.pvec) {  // stride K (even): 8-byte reads by 16 threads hit distinct banks
-          for (int k = 0; k < K; k += 2) {
-            const float2 v = *reinterpret_cast<const float2*>(p + k);
-            hw = fmaxf(hw, fabsf(v.x - gq[k]));
-            hw = fmaxf(hw, fabsf(v.y - gq[k + 1]));
-          }
-        } else {
-          for (int k = 0; k < K; ++k) hw = fmaxf(hw, fabsf(p[k] - gq[k]));
-        }
+        const float hw = staged_hw(p, a.pvec != 0, gq, K);
         bin = 0;
         for (int j = 0; j < steps; ++j) bin += hw > halves[j];
         if (bin < steps) {
@@ -747,26 +471,6 @@ Kernel pick(int mode, Kernel norm, Kernel exact, Kernel bf16, Kernel int8) {
     case kInt8: return int8;
     default: return nullptr;
   }
-}
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 1;
-  }
-  return count;
-}
-
-// Blocks per query: the largest power of two up to kMaxSplit with
-// Q * split within the SM count (and no more blocks than units of work).
-int pick_split(int Q, int units) {
-  int split = 1;
-  while (split < kMaxSplit && 2 * split <= units && (int64_t)Q * split * 2 <= sm_count())
-    split *= 2;
-  return split;
 }
 
 // Fill the plan's fields of `a` and launch `kernel` with `split` blocks a

@@ -12,6 +12,7 @@ one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -80,7 +81,7 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:  # torch.Size is a tuple
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
@@ -270,21 +271,28 @@ def fused_cand_search(cand_proj, cand_x, cand_norms, cand_ids, halves, g, q, *,
     return bd, bi, cnt
 
 
-def _verify_launch(name: str, q: torch.Tensor, K: int, C: int, k: int, n: int, launch):
+@functools.lru_cache(maxsize=256)
+def _verify_smem(K: int, d: int, C: int, M: int, k: int) -> int:
+    """Shared memory one block of a verify kernel asks for (M: B6's blocks
+    per query, 0 for B7): a function of the shape alone, asked once."""
+    return _build.load().verify_smem_bytes(K, d, C, M, k)
+
+
+def _verify_launch(name: str, q: torch.Tensor, K: int, C: int, M: int, k: int, n: int,
+                   launch):
     """Shared tail of the per-radius verify wrappers: guards, outputs,
-    the launch on the current stream, the count."""
-    d = q.shape[-1]
-    lib = _build.load()
-    _check_smem(lib.verify_smem_bytes(K, d, C), C)
+    the launch on the current stream (operands passed as plain addresses),
+    the count."""
+    _check_smem(_verify_smem(K, q.shape[-1], C, M, k), C)
     _check_k(k, n)
     Qn = q.shape[0]
     bd = torch.empty((Qn, k), dtype=torch.float32, device=q.device)
     bi = torch.empty((Qn, k), dtype=torch.int32, device=q.device)
     if Qn == 0:
         return bd, bi
+    lib = _build.load()
     with torch.cuda.device(q.device):
-        err = launch(lib, _ptr(bd), _ptr(bi),
-                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        err = launch(lib, bd.data_ptr(), bi.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, name)
     launches[name] += 1
     return bd, bi
@@ -324,9 +332,10 @@ def window_verify(blk_idx, proj_blocks, vec_blocks, ids_blocks, g, q, w: float, 
     _check("g", g, f32, (Qn, K))
     _check("q", q, f32, (Qn, d))
     return _verify_launch(
-        "window_verify", q, K, M * B, k, n,
+        "window_verify", q, K, M * B, M, k, n,
         lambda lib, bd, bi, stream: lib.window_verify_launch(
-            *map(_ptr, args), float(w), bd, bi, Qn, M, nb, B, K, d, k, n, stream),
+            *(t.data_ptr() for t in args), float(w), bd, bi, Qn, M, nb, B, K, d, k, n,
+            stream),
     )
 
 
@@ -355,9 +364,9 @@ def candidate_verify(cand_proj, cand_vecs, cand_ids, g, q, w: float, *, n: int, 
     _check("g", g, f32, (Qn, K))
     _check("q", q, f32, (Qn, d))
     return _verify_launch(
-        "candidate_verify", q, K, C, k, n,
+        "candidate_verify", q, K, C, 0, k, n,
         lambda lib, bd, bi, stream: lib.candidate_verify_launch(
-            *map(_ptr, args), float(w), bd, bi, Qn, C, K, d, k, n, stream),
+            *(t.data_ptr() for t in args), float(w), bd, bi, Qn, C, K, d, k, n, stream),
     )
 
 

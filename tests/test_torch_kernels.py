@@ -727,6 +727,204 @@ def test_verify_kernels_reject_oversized_pool(cuda):
         candidate_verify(*_t(args, cuda), 1.0, n=100, k=5)
 
 
+# The verify kernels' edges: the staging tiles, the element loads, the
+# block-wide selection, the cluster shares.  Integer-valued vectors make
+# every d2 exact, and projections g + {0, +-0.75} put a slot's hw at 0 or
+# 0.75 exactly, so at w = 1 the kernels equal their twins bit for bit.
+
+def _int_levels(rng, g, shape, p_in):
+    """Projections around g (broadcast to ``shape``): a slot lies in the
+    window of w = 1 (hw = 0) with probability p_in, else hw = 0.75."""
+    out = rng.random(shape[:-1]) >= p_in
+    off = rng.integers(-1, 2, shape) * 0.75
+    off[..., 0] = 0.75
+    return (g + np.where(out[..., None], off, 0.0)).astype(np.float32)
+
+
+def _int_verify_cand(seed, Q, C, K, d, *, vals=2, p_in=0.7, n=4096):
+    """Gathered candidates with integer vectors in [-vals, vals]; ids in
+    [0, n] (some slots carry the invalid id n), every 7th slot invalid
+    (+inf projection)."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(-4, 5, (Q, K)).astype(np.float32)
+    cp = _int_levels(rng, g[:, None, :], (Q, C, K), p_in)
+    cp[:, ::7] = np.inf
+    cv = rng.integers(-vals, vals + 1, (Q, C, d)).astype(np.float32)
+    ci = rng.integers(0, n + 1, (Q, C)).astype(np.int32)
+    q = rng.integers(-vals, vals + 1, (Q, d)).astype(np.float32)
+    return (cp, cv, ci, g, q), n
+
+
+def _int_verify_window(seed, Q, M, nb, B, K, d, *, vals=2, p_in=0.7):
+    """STR blocks of one table with integer vectors, each id at most once,
+    ids >= n padding; every query shares the blocks' centre g; block ids
+    include the sentinel nb, -1 and 2^20 (M >= 3)."""
+    rng = np.random.default_rng(seed)
+    n = nb * B - 3
+    g = np.repeat(rng.integers(-4, 5, (1, K)), Q, axis=0).astype(np.float32)
+    proj = _int_levels(rng, g[0], (nb, B, K), p_in)
+    vec = rng.integers(-vals, vals + 1, (nb, B, d)).astype(np.float32)
+    ids = rng.permutation(nb * B).reshape(nb, B).astype(np.int32)
+    blk = rng.integers(0, nb, (Q, M)).astype(np.int32)
+    if M >= 3:
+        blk[:, -1] = nb
+        blk[0, 0] = -1
+        blk[-1, 1] = 1 << 20
+    q = rng.integers(-vals, vals + 1, (Q, d)).astype(np.float32)
+    return (blk, proj, vec, ids, g, q), n
+
+
+def _verify_bits(kind, args, n, k, device, w=1.0, misalign=False):
+    """The verify kernel on ``device`` against its twin on the same tensors:
+    both outputs equal bit for bit.  Returns the kernel's outputs."""
+    targs = [a.to(device) for a in _t(args)]
+    x_idx = 2 if kind == "window" else 1
+    if misalign:
+        targs[x_idx] = _misaligned(targs[x_idx])
+        assert targs[x_idx].data_ptr() % 16 != 0
+    wrapper, ref = ((window_verify, twin.window_verify_ref) if kind == "window"
+                    else (candidate_verify, twin.candidate_verify_ref))
+    before = launches[wrapper.__name__]
+    got = wrapper(*targs, w, n=n, k=k)
+    torch.cuda.synchronize()
+    assert launches[wrapper.__name__] == before + 1
+    want = ref(*targs, w, n=n, k=k)
+    assert torch.equal(got[0], want[0]), "distances"
+    assert torch.equal(got[1], want[1]), "ids"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("cand", 1, 1000, 10, 64),   # a cluster of 4, 250 slots a block: past one stage tile
+    ("cand", 200, 301, 10, 64),  # one block a query, 128-slot tiles, the last ragged
+    ("window", 200, 5, 12, 64),  # the main path's blocks (M = 5, B = 64) at Q = 200
+    ("window", 3, 7, 9, 24),     # blocks of 24 rows, a share not a multiple of a tile
+])
+def test_verify_kernels_stage_tiles(cuda, case):
+    kind, Q, a, b, c = case
+    if kind == "cand":
+        args, n = _int_verify_cand(Q + a, Q, a, b, c)
+    else:
+        args, n = _int_verify_window(Q + a, Q, a, b, c, 7 if c == 24 else 10, 64)
+    _verify_bits(kind, args, n, 10, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 33])
+@pytest.mark.parametrize("misalign", [False, True])
+def test_verify_kernels_element_loads(cuda, d, misalign):
+    """d = 33 (rows not whole 16-byte chunks), K = 7 (4-byte projection
+    copies) and x bases one element into their buffers: the element
+    copies, the same values in the same order."""
+    args, n = _int_verify_cand(d, 5, 101, 7, d)
+    _verify_bits("cand", args, n, 20, cuda, misalign=misalign)
+    args, n = _int_verify_window(d + 1, 5, 7, 9, 24, 7, d)
+    _verify_bits("window", args, n, 20, cuda, misalign=misalign)
+
+
+@pytest.mark.cuda
+def test_verify_kernels_dedup(cuda):
+    """One point in many slots of its query: B7 with one candidate (at
+    d2 = 0) repeated in 40 slots spread over the cluster's shares, the
+    other ids distinct; B6 with one block selected five times; B7 again
+    on a pool too large to rank by counting.  Each id is kept once."""
+    args, n = _int_verify_cand(11, 3, 320, 10, 16, p_in=1.0)
+    cp, cv, ci, g, q = args
+    rep = np.arange(0, 320, 8)
+    ci[:] = 3 * np.arange(320) + 1
+    cp[:, rep] = g[:, None, :]
+    cv[:, rep] = q[:, None, :]
+    ci[:, rep] = 17
+    got = _verify_bits("cand", (cp, cv, ci, g, q), n, 64, cuda)
+    for row_d, row_i in zip(*(x.cpu() for x in got)):
+        kept = row_i[torch.isfinite(row_d)].tolist()
+        assert len(kept) == len(set(kept)) and 17 in kept
+    args, n = _int_verify_window(12, 4, 6, 8, 32, 10, 16, p_in=1.0)
+    args[0][:, :4] = args[0][:, 4:5]
+    bd, bi = _verify_bits("window", args, n, 64, cuda)
+    for row_d, row_i in zip(bd.cpu(), bi.cpu()):
+        kept = row_i[torch.isfinite(row_d)].tolist()
+        assert len(kept) == len(set(kept))
+    # a pool too large to rank by counting (selected by the warps' lists)
+    args, n = _int_verify_cand(19, 1, 1600, 10, 16, p_in=1.0)
+    cp, cv, ci, g, q = args
+    rep = np.arange(0, 1600, 50)
+    ci[:] = 3 * np.arange(1600) + 1
+    cp[:, rep] = g[:, None, :]
+    cv[:, rep] = q[:, None, :]
+    ci[:, rep] = 17
+    bd, bi = _verify_bits("cand", (cp, cv, ci, g, q), n, 10, cuda)
+    kept = bi[0][torch.isfinite(bd[0])].tolist()
+    assert kept[0] == 17 and len(kept) == len(set(kept))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cand", "window"])
+@pytest.mark.parametrize("Q", [4, 200])
+def test_verify_kernels_ties_on_d2(cuda, kind, Q):
+    """Vectors in {-1, 0, 1}^4: few distinct distances, many ids on each;
+    ties resolve to the smallest ids, as in the twin (Q = 4 ranks by
+    counting, Q = 200 by the warps' lists)."""
+    if kind == "cand":
+        args, n = _int_verify_cand(13 + Q, Q, 320, 4, 4, vals=1)
+    else:
+        args, n = _int_verify_window(14 + Q, Q, 5, 8, 64, 4, 4, vals=1)
+    _verify_bits(kind, args, n, 64, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cand", "window"])
+def test_verify_kernels_sparse_windows(cuda, kind):
+    """Fewer in-window slots than k (unfilled entries +inf, n), and no slot
+    in the window at all."""
+    for p_in, k in ((0.01, 40), (0.0, 10)):
+        if kind == "cand":
+            args, n = _int_verify_cand(15, 5, 320, 10, 64, p_in=p_in)
+        else:
+            args, n = _int_verify_window(16, 5, 5, 12, 64, 10, 64, p_in=p_in)
+        bd, bi = _verify_bits(kind, args, n, k, cuda)
+        filled = torch.isfinite(bd)
+        assert bool((~filled[:, -1]).all()) and bool((bi[~filled] == n).all())
+        if p_in == 0.0:
+            assert not bool(filled.any())
+
+
+@pytest.mark.cuda
+def test_verify_kernels_invalid_block_ids(cuda):
+    """Block ids outside [0, nb) (the sentinel nb, -1, 2^20) contribute
+    nothing: bit-equal to the call with every invalid id replaced by nb."""
+    args, n = _int_verify_window(17, 6, 6, 10, 64, 10, 64)
+    blk = args[0]
+    blk[:, 3:] = [10, -1, 1 << 20]
+    got = _verify_bits("window", args, n, 64, cuda)
+    only = blk.copy()
+    only[:, 3:] = 10
+    want = _verify_bits("window", (only, *args[1:]), n, 64, cuda)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 5, 64, 200])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_verify_kernels_launch_shapes(cuda, Q, k):
+    """The main path's shape (M = 5, B = 64, K = 10, d = 64; C = 320) at Q
+    below 132 (clusters of 4, 4 and 2 blocks) and above (one block)."""
+    args, n = _int_verify_window(Q + k, Q, 5, 12, 64, 10, 64, vals=3)
+    _verify_bits("window", args, n, k, cuda)
+    args, n = _int_verify_cand(Q + k + 1, Q, 320, 10, 64, vals=3)
+    _verify_bits("cand", args, n, k, cuda)
+
+
+@pytest.mark.cuda
+def test_verify_kernels_argmin_rounds(cuda):
+    """k = 500, past a warp's buffer: k argmin rounds over the cluster's
+    keys, with more than k distinct in-window slots."""
+    args, n = _int_verify_cand(18, 2, 1200, 10, 16, vals=6, p_in=0.9, n=100_000)
+    bd, _ = _verify_bits("cand", args, n, 500, cuda)
+    assert bool(torch.isfinite(bd).all())
+
+
 # ------------------------------------------- B4, B5 and B8 on the card
 
 

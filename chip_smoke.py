@@ -19,11 +19,15 @@ Phases, each printing a line (with its seconds) when it passes:
                  all-masked cases, invalid block ids and M == nb; B4/B5 at
                  tests/test_kernels.py:122-176's shapes in both forms (hw
                  bit-equal, d2 within a norm-scaled atol, +inf on invalid
-                 blocks, the all-invalid case); B8 at :496-532's shapes and
-                 at the edges of its bf16 and fp32 tiles in fp32 and bf16
-                 (rtol 1e-4, atol 1e-4 x d), on bases not 16-byte aligned
-                 (bit-equal to the aligned call), and bit-equal on integer
-                 inputs;
+                 blocks, the all-invalid case), and at their edges on
+                 integer inputs, bit-equal to the twin in both forms (5,000
+                 units, so each block of the grid walks several; B = 7/100/130,
+                 Ct = 1/65/100/333; d = 12/33 on unaligned bases; odd K;
+                 a query whose blocks are all invalid; Q = 1/5/64); B8 at
+                 :496-532's shapes and at the edges of its bf16 and fp32
+                 tiles in fp32 and bf16 (rtol 1e-4, atol 1e-4 x d), on
+                 bases not 16-byte aligned (bit-equal to the aligned call),
+                 and bit-equal on integer inputs;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
                  queries, steps = 8, r0 = 0.5) through the one-pass
@@ -90,8 +94,9 @@ Phases, each printing a line (with its seconds) when it passes:
                  the 10th distance, the bf16 id overlap printed;
 11. times      — median CUDA-event times of each kernel (B3 per mode) and
                  its twin at the shapes its path gives it, with the
-                 profiler's device time (and, for B6/B7, the host time of
-                 a call), beside the least time the card could take (every
+                 profiler's device time (and, for B4-B7, the host time of
+                 a call; for B4/B5 the exact form beside the norm form),
+                 beside the least time the card could take (every
                  kernel at both batches; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
                  ratios); median wall times
@@ -354,6 +359,40 @@ def dist_cand_case(torch, gen, Q, L, Ct, K, d, dev):
     return cp, cv, cn.contiguous(), g, q
 
 
+def dist_int_window(torch, gen, Q, L, M, nb, B, K, d, dev, p_invalid=0.2):
+    """B4 inputs in small integers (every sum exact in float32, so both
+    forms equal the twin bit for bit), as tests/test_torch_kernels.py's
+    _int_dist_window: a share of the block ids invalid (-1, L*nb, 2^20)
+    between valid ones, the last block's back half +inf-padded."""
+    lnb = L * nb
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    proj, vec = ints(-3, 4, (lnb, B, K)), ints(-2, 3, (lnb, B, d))
+    nrm = (vec * vec).sum(-1)
+    proj[-1, B // 2:] = torch.inf
+    nrm[-1, B // 2:] = torch.inf
+    blk = torch.randint(0, lnb, (Q, L * M), generator=gen, device=dev).int()
+    bad = torch.rand((Q, L * M), generator=gen, device=dev) < p_invalid
+    bad_ids = torch.tensor([-1, lnb, 1 << 20], dtype=torch.int32, device=dev)
+    blk[bad] = bad_ids[torch.randint(0, 3, (int(bad.sum()),), generator=gen, device=dev)]
+    return blk, proj, vec, nrm, ints(-3, 4, (Q, L, K)), ints(-2, 3, (Q, d))
+
+
+def dist_int_cand(torch, gen, Q, L, Ct, K, d, dev):
+    """B5 inputs in small integers; every 7th slot invalid (+inf projection
+    and norm)."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    cp, cv = ints(-3, 4, (Q, L, Ct, K)), ints(-2, 3, (Q, L, Ct, d))
+    cn = (cv * cv).sum(-1)
+    cp[:, :, ::7] = torch.inf
+    cn[:, :, ::7] = torch.inf
+    return cp, cv, cn.contiguous(), ints(-3, 4, (Q, L, K)), ints(-2, 3, (Q, d))
+
+
 def norm_scale(torch, x, q) -> float:
     """max ||x||^2 + max ||q||^2 over the finite rows: the norm form's
     ||x||^2 - 2<q,x> + ||q||^2 cancels, so its rounding follows this."""
@@ -549,18 +588,21 @@ def queued_us(torch, fn, calls: int = 5) -> float:
     return statistics.median(times)
 
 
-def host_us(torch, fn, calls: int = 50) -> float:
-    """Host microseconds of one call: ``time.perf_counter`` over ``calls``
-    calls with no synchronisation inside the loop (the launches queue on
-    the card), after a warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
+def host_us(torch, fn, calls: int = 50, rounds: int = 5) -> float:
+    """Host microseconds of one call: the median over ``rounds`` rounds of
+    ``time.perf_counter`` over ``calls`` calls with no synchronisation
+    inside the loop (the launches queue on the card), each round after a
+    warm-up call and a synchronisation."""
+    times = []
+    for _ in range(rounds):
         fn()
-    out = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def stage_ms(events, on_card, stages) -> dict:
@@ -580,6 +622,43 @@ def stage_ms(events, on_card, stages) -> dict:
             e.self_device_time_total for e in on_card
             if any(s <= e.time_range.start and e.time_range.end <= t for s, t in spans)) / 1e3, 3)
     return out
+
+
+def main_workload(gen, dev):
+    """The main path's workload on the card, drawn from ``gen``: N points
+    of dimension D (clustered, 250 clusters, spread 0.02, normalize_scale),
+    N_QUERIES_LARGE queries, and the index built with derive(c=1.5, t=64,
+    k=K_NN, K=10, L=5, inline_vectors=True).  Returns (data, queries,
+    params, index)."""
+    from repro_torch.core import DBLSHParams, build
+    from repro_torch.data import make_clustered, normalize_scale
+
+    pts = make_clustered(gen, N + N_QUERIES_LARGE, D, n_clusters=N // 4000,
+                         spread=0.02, device=dev)
+    data, queries, _ = normalize_scale(pts[:N], pts[N:])
+    del pts
+    params = DBLSHParams.derive(n=N, d=D, c=1.5, t=64, k=K_NN, K=10, L=5,
+                                inline_vectors=True)
+    return data, queries, params, build(data, params, generator=gen, device=dev)
+
+
+def pool_inputs(kernels, wrappers, index, Qb, exact: bool, kw: dict):
+    """The calls of B4 and B5 on the search's own selection: the blocks,
+    projections and queries that the one-pass ``inline`` search of ``Qb``
+    gives its fused kernel B1 at the final radius, handed to
+    ``_gather_pool``'s ``inline`` (B4) and ``kernel`` (B5) engines.
+    Returns B1's captured call and {"window_dist": B4's, "candidate_dist":
+    B5's}, each as (args, kwargs)."""
+    from repro_torch.core import search_batch_fixed
+    from repro_torch.core.serve_search import _gather_pool
+
+    wa, wk = capture_calls(kernels, wrappers, "fused_window_search", lambda: (
+        search_batch_fixed(index, Qb, engine="inline", exact=exact, **kw)))
+    blk_q, G, Qq = wa[0], wa[6], wa[7]
+    calls = {name: capture_calls(kernels, wrappers, name, lambda e=e: (
+        _gather_pool(index, blk_q, G, Qq, e, exact)))
+        for name, e in zip(POOL, ("inline", "kernel"))}
+    return (wa, wk), calls
 
 
 def capture_calls(kernels, wrappers, name, fn):
@@ -829,6 +908,46 @@ def main() -> int:
         check(bool(torch.isinf(d2_).all() and torch.isinf(hw_).all()),
               "B4: an all-invalid selection gave a finite slot")
         n_cases += 1
+    # B4/B5's edges (tests/test_torch_kernels.py's test_dist_kernels_*): the
+    # blocks walking many units (5,000 of 64 rows), ragged units (B = 7, 100, 130;
+    # Ct = 1, 65, 100, 333), d = 12 / 33 with and without unaligned bases
+    # (vectors, projections, queries), odd K, Q = 1 / 5 / 64; one query's
+    # blocks all invalid; on integer inputs, so both forms equal the twin bit
+    # for bit (and the unaligned call the aligned one)
+    dist_edges = [("window", (200, 5, 5, 40, 64, 10, 64), False),
+                  ("cand", (200, 5, 320, 10, 64), False)]
+    dist_edges += [("window", (6, 3, 4, 9, B, 10, 64), False) for B in (7, 100, 130)]
+    dist_edges += [("cand", (6, 3, Ct, 10, 64), False) for Ct in (1, 65, 100, 333)]
+    dist_edges += [(kind, shape, mis) for d in (12, 33) for mis in (False, True)
+                   for kind, shape in (("window", (9, 3, 5, 12, 64, 10, d)),
+                                       ("cand", (9, 3, 150, 10, d)))]
+    dist_edges += [(kind, shape, False) for K in (1, 5, 7)
+                   for kind, shape in (("window", (7, 3, 5, 12, 64, K, 64)),
+                                       ("cand", (7, 3, 130, K, 64)))]
+    dist_edges += [(kind, shape, False) for Q in (1, 5, 64)
+                   for kind, shape in (("window", (Q, 5, 5, 30, 64, 10, 64)),
+                                       ("cand", (Q, 5, 320, 10, 64)))]
+    for kind, shape, mis in dist_edges:
+        if kind == "window":
+            Q, L, M, nb, B, K, d = shape
+            args = dist_int_window(torch, dist_gen, Q, L, M, nb, B, K, d, dev)
+            if Q > 1:
+                args[0][Q // 2] = L * nb
+            name, kw, moved = "window_dist", {"M": M}, (1, 2, 5)
+        else:
+            args = dist_int_cand(torch, dist_gen, *shape, dev)
+            name, kw, moved = "candidate_dist", {}, (0, 1, 4)
+        margs = [misaligned(torch, t) if mis and i in moved else t for i, t in enumerate(args)]
+        for exact in (False, True):
+            got = wrappers[name](*margs, exact=exact, **kw)
+            check(bit_equal(torch, got, twins[name](*args, exact=exact, **kw)),
+                  f"{name} {shape} exact={exact} misaligned={mis} on integers: not bit-equal "
+                  f"to the twin")
+            if mis:
+                check(bit_equal(torch, got, wrappers[name](*args, exact=exact, **kw)),
+                      f"{name} {shape} exact={exact}: the unaligned call differs from the "
+                      f"aligned one")
+            n_cases += 1
     l2_err = {"fp32": 0.0, "bf16": 0.0}  # B8's largest |err| per input type
     # tests/test_kernels.py:496-532's shapes, then the bf16 tile's edges (as
     # tests/test_torch_kernels.py::L2_EDGE_SHAPES): nq past one 128-row
@@ -889,20 +1008,15 @@ def main() -> int:
     print(f"[twins] ok: {n_cases} kernel-vs-twin cases agree (counts equal, "
           f"rtol = atol = 1e-5, id sets per bin / per query; B3 bf16: bin id overlap "
           f">= 0.98; B4/B5: hw bit-equal, d2 rtol 1e-5 + atol {NORM_ATOL} x the norms "
-          f"where hw is finite, +inf on invalid blocks; B8 fp32/bf16: rtol 1e-4, "
+          f"where hw is finite, +inf on invalid blocks, and bit-equal at their edges on "
+          f"integer inputs; B8 fp32/bf16: rtol 1e-4, "
           f"atol 1e-4 x d, and bit-equal on integer inputs); max |err| {max_err}; B3 "
           f"outputs bit-equal to the twin: "
           f"{json.dumps({k_: v for k_, v in b3_bits.items()})} ({phase_s():.1f} s)", flush=True)
 
     # -------------------------------------------------------- 3. main path
     t0 = time.perf_counter()
-    pts = make_clustered(gen, N + N_QUERIES_LARGE, D, n_clusters=N // 4000,
-                         spread=0.02, device=dev)
-    data, queries, _ = normalize_scale(pts[:N], pts[N:])
-    del pts
-    params = DBLSHParams.derive(n=N, d=D, c=1.5, t=64, k=K_NN, K=10, L=5,
-                                inline_vectors=True)
-    index = build(data, params, generator=gen, device=dev)
+    data, queries, params, index = main_workload(gen, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     check((params.block_size, params.max_blocks) == (64, 5),
@@ -1368,8 +1482,7 @@ def main() -> int:
         atol = NORM_ATOL * norm_scale(torch, data, Qb)
         for exact in (False, True):
             form = "exact" if exact else "norm"
-            wa, wk = capture_calls(kernels, wrappers, "fused_window_search", lambda: (
-                search_batch_fixed(index, Qb, engine="inline", exact=exact, **kw)))
+            (wa, wk), calls = pool_inputs(kernels, wrappers, index, Qb, exact, kw)
             ca, ck = capture_calls(kernels, wrappers, "fused_cand_search", lambda: (
                 search_batch_fixed(index, Qb, engine="kernel", exact=exact, **kw)))
             blk_q, halves_t, G, Qq = wa[0], wa[1], wa[6], wa[7]
@@ -1414,10 +1527,8 @@ def main() -> int:
                   f"B4's pool, binned, differs from B1's bins @{Qn} {form}")
             check(all(torch.equal(x, y) for x, y in zip(b5_bins, b2)),
                   f"B5's pool, binned, differs from B2's bins @{Qn} {form}")
-            for name, e in (("window_dist", "inline"), ("candidate_dist", "kernel")):
-                pool_calls[name, Qn, exact] = capture_calls(
-                    kernels, wrappers, name, lambda: _gather_pool(index, blk_q, G, Qq, e, exact))
-                a, k = pool_calls[name, Qn, exact]
+            for name in POOL:
+                pool_calls[name, Qn, exact] = a, k = calls[name]
                 x, q_ = (a[2], a[5]) if name == "window_dist" else (a[1], a[4])
                 max_err[name] = max(max_err[name], pool_err(
                     torch, wrappers[name](*a, **k), twins[name](*a, **k), x, q_, exact))
@@ -1537,6 +1648,16 @@ def main() -> int:
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         library_ms, lib_note = None, ""
+        if wrapper in POOL:  # the host side of a call, and the exact form beside
+            ea, ek = pool_calls[wrapper, a[-1].shape[0], True]
+            ex_ms = cuda_ms(torch, lambda: wrappers[wrapper](*ea, **ek), iters=50)
+            ex_us, ex_how = device_us(torch, lambda: wrappers[wrapper](*ea, **ek),
+                                      f"{wrapper}_kernel")
+            e_in, e_out, _, e_ops_ms = work(torch, wrapper, ea, ek)
+            e_bound = max((e_in + e_out) / HBM_BYTES_PER_S * 1e3, e_ops_ms)
+            lib_note = (f"; host {host_us(torch, lambda: wrappers[wrapper](*a, **k)):.1f} "
+                        f"us/call; exact form: median {ex_ms:.4f} ms, device {ex_us:.1f} us "
+                        f"by {ex_how}, bound {e_bound * 1e3:.2f} us")
         if wrapper == "pairwise_l2":
             library_ms = cuda_ms(torch, lambda: torch.cdist(
                 *a, compute_mode="use_mm_for_euclid_dist"), iters=20)

@@ -48,8 +48,8 @@
 //   * a slot's d2 is one sequential chain over i = 0..d-1 (fmaf in float32
 //     and bf16; in int8 an int32 sum, exact in any order, so taken four
 //     products at a time with dp4a; then dequant_d2's rounded steps),
-//     the same operations on the same values as slot_d2 reads from device
-//     memory, so every copy of a point gives a bit-identical (d2, id) pair
+//     the same operations on the same values in every kernel that
+//     computes a slot (search_common.cuh's staged_d2), so every copy of a point gives a bit-identical (d2, id) pair
 //     and the one-pass exact=True search stays bit-equal to the
 //     multi-pass oracle (B6/B7) and to the pool engines (B4/B5);
 //   * bucketing: phase 1 keeps each slot's (d2, id) as a 64-bit key and

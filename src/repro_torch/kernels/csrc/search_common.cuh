@@ -6,9 +6,8 @@
 // One copy of each helper is what makes the one-pass search with
 // exact=True bit-equal to the multi-pass oracle inside the port: every
 // kernel computes a slot's hw as the same fmaxf(fabsf(p - g)) sequence
-// over k and its diff-form d2 as the same fmaf chain over i = 0..d-1 —
-// from device memory (slot_hw / slot_d2, B4/B5) or from rows staged in
-// shared memory by cp.async (staged_d2, B1/B2/B3 and B6/B7) — and the
+// over k and its d2 as the same fmaf chain over i = 0..d-1, from rows
+// staged in shared memory by cp.async (staged_hw, staged_d2) — and the
 // kernels that select (B1/B2/B3, B6/B7) keep the k lexicographically
 // smallest DISTINCT (d2, id) pairs by one rule, on 64-bit keys
 // (warp_topk), so one point yields the same (d2, id) pair everywhere.
@@ -49,34 +48,6 @@ __host__ __device__ inline int padded_stride(int rowbytes) {
 // Block-wide copy of `count` floats to shared memory (strided by thread).
 __device__ inline void stage(float* dst, const float* __restrict__ src, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
-}
-
-// Window halfwidth of one slot: max_k |p_k - g_k| (p in global memory,
-// g staged).  A slot is inside the window of half width h iff hw <= h.
-__device__ inline float slot_hw(const float* __restrict__ p, const float* g, int K) {
-  float hw = 0.0f;
-  for (int k = 0; k < K; ++k) hw = fmaxf(hw, fabsf(__ldg(p + k) - g[k]));
-  return hw;
-}
-
-// Squared distance of one slot: one sequential fmaf chain over d that
-// depends only on (x, q), never on the slot's position, so every copy of
-// a point gives a bit-identical d2.  kExact: diff form sum((x - q)^2);
-// else the norm form max(nrm - 2<q,x> + q2, 0).
-template <bool kExact>
-__device__ inline float slot_d2(const float* __restrict__ x, const float* q, int d,
-                                float nrm, float q2) {
-  float acc = 0.0f;
-  if constexpr (kExact) {
-    for (int i = 0; i < d; ++i) {
-      const float t = __ldg(x + i) - q[i];
-      acc = fmaf(t, t, acc);
-    }
-    return acc;
-  } else {
-    for (int i = 0; i < d; ++i) acc = fmaf(__ldg(x + i), q[i], acc);
-    return fmaxf(nrm - 2.0f * acc + q2, 0.0f);
-  }
 }
 
 // The distance modes of the fused kernels, numbered as the wrappers'
@@ -141,10 +112,14 @@ __device__ inline void copy_grid(const int64_t* rt, int nr, int w, F f) {
 
 // ------------------------------------------------------ the slot's d2
 
-// d2 of one staged x row, in the order and with the operations of
-// slot_d2 / dequant_d2.  vec: the row is whole 16-byte chunks, read 16
-// bytes at a time, and so is the staged query; else element by element.
-// qp: the int8 query packed (int8 mode).
+// d2 of one staged x row: one sequential chain over i = 0..d-1 that
+// depends only on (x, q), never on the slot's position, so every copy of a
+// point gives a bit-identical d2.  kExact: diff form sum((x - q)^2), fmaf
+// on (x - q); kNorm: the fmaf dot, then max(nrm - 2<q,x> + q2, 0); the
+// quantized modes: the dot, then dequant_d2.  vec: the row is whole
+// 16-byte chunks, read 16 bytes at a time, and so is the staged query;
+// else element by element (the same chain).  qp: the int8 query packed
+// (int8 mode).
 template <int kMode>
 __device__ inline float staged_d2(const char* xr, bool vec, const float* q, const int* qp,
                                   int d, float nrm, float q2, float xs, float qs) {
@@ -219,8 +194,9 @@ __device__ inline float staged_d2(const char* xr, bool vec, const float* q, cons
   }
 }
 
-// Window halfwidth of one staged projection row p against g, as slot_hw.
-// vec: K is even and p 8-byte aligned, read as float2 (a row stride of K
+// Window halfwidth of one staged projection row p against g: max_k
+// |p_k - g_k| in order of k (a slot is inside the window of half width h
+// iff hw <= h).  vec: K is even and p 8-byte aligned, read as float2 (a row stride of K
 // floats with K/2 odd puts 16 threads' reads on distinct banks).
 __device__ inline float staged_hw(const float* p, bool vec, const float* g, int K) {
   float hw = 0.0f;
@@ -444,13 +420,18 @@ inline int pick_split(int Q, int units) {
 
 // Raise a kernel's dynamic shared memory limit to `smem` bytes, once per
 // kernel, device and size: cudaFuncSetAttribute runs only when a launch
-// asks for more than the kernel was granted on the current device.
+// asks for more than the kernel was granted on the current device.  Where
+// `blocks` is given, also set it to the blocks of `threads` threads (one
+// block size per kernel) and `smem` bytes that fit on one SM, asked of the
+// runtime only when the size differs from the kernel's last such call.
 template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
+int prepare(Kernel kernel, size_t smem, int threads = 0, int* blocks = nullptr) {
   struct Grant {
     Kernel fn;
     int dev;
-    size_t bytes;
+    size_t bytes;      // the limit granted
+    size_t occ_bytes;  // the size `occ` was asked for
+    int occ;           // blocks an SM at occ_bytes (0: not asked)
   };
   static std::mutex mu;
   static Grant grants[64];
@@ -462,12 +443,29 @@ int prepare(Kernel kernel, size_t smem) {
   Grant* g = nullptr;
   for (int i = 0; i < ngrants; ++i)
     if (grants[i].fn == kernel && grants[i].dev == dev) g = &grants[i];
-  if (g != nullptr && smem <= g->bytes) return 0;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (g == nullptr || smem > g->bytes) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+    if (g == nullptr && ngrants < 64) {
+      g = &grants[ngrants++];
+      *g = {kernel, dev, 0, 0, 0};
+    }
+    if (g != nullptr) g->bytes = smem;
+  }
+  if (blocks == nullptr) return 0;
+  if (g != nullptr && g->occ > 0 && g->occ_bytes == smem) {
+    *blocks = g->occ;
+    return 0;
+  }
+  const int err =
+      (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   if (err != 0) return err;
-  if (g == nullptr && ngrants < 64) g = &grants[ngrants++];
-  if (g != nullptr) *g = {kernel, dev, smem};
+  if (*blocks < 1) *blocks = 1;
+  if (g != nullptr) {
+    g->occ_bytes = smem;
+    g->occ = *blocks;
+  }
   return 0;
 }
 

@@ -42,9 +42,8 @@
 //     >= nb) stages nothing.  The x rows are padded so that threads
 //     reading their own rows hit distinct banks;
 //   * each thread then takes one staged slot: id < n, hw (staged_hw, the
-//     fmaxf(fabsf(p - g)) sequence of slot_hw) <= 0.5f * w, and d2
-//     (staged_d2<kExact>, the fmaf chain of slot_d2<true> in the same
-//     order), kept as a 64-bit key ordered as (d2, id), or kNoKey where
+//     fmaxf(fabsf(p - g)) sequence over k) <= 0.5f * w, and d2
+//     (staged_d2<kExact>, the diff form's fmaf chain over i), kept as a 64-bit key ordered as (d2, id), or kNoKey where
 //     the slot fails or d2 is not finite.  Every (d2, id) pair is
 //     bit-identical to B1/B2's with exact=True and to B4/B5's, so the
 //     one-pass search stays bit-equal to this multi-pass oracle;

@@ -370,15 +370,23 @@ def candidate_verify(cand_proj, cand_vecs, cand_ids, g, q, w: float, *, n: int, 
     )
 
 
+@functools.lru_cache(maxsize=256)
+def _dist_smem(K: int, d: int) -> int:
+    """Shared memory one block of a distance kernel asks for: one unit's
+    stage (64 rows, fewer where 64 would not fit) and its row table, a
+    function of the shape alone, asked once."""
+    return _build.load().dist_smem_bytes(K, d)
+
+
 def _dist_launch(name: str, q: torch.Tensor, K: int, C: int, launch):
     """Shared tail of the per-slot distance wrappers: the shared memory
     guard, the (Q, C) outputs d2 and hw, q2 as the fused kernels' wrappers
     compute it, the launch on the current stream, the count."""
-    lib = _build.load()
-    smem = lib.dist_smem_bytes(K, q.shape[-1])
+    smem = _dist_smem(K, q.shape[-1])
     if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: K + d words of shared memory ({smem} bytes) exceed "
-                         f"{_MAX_SMEM}")
+        raise ValueError(f"{name}: the stage of one row (K={K}, d={q.shape[-1]}) needs "
+                         f"{smem} bytes of shared memory, above {_MAX_SMEM}")
+    lib = _build.load()
     Qn = q.shape[0]
     d2 = torch.empty((Qn, C), dtype=torch.float32, device=q.device)
     hw = torch.empty((Qn, C), dtype=torch.float32, device=q.device)
@@ -459,8 +467,6 @@ def candidate_dist(cand_proj, cand_vecs, cand_norms, g, q, *, exact: bool = Fals
     _check("q", q, f32, (Qn, d))
     if not cuda:
         return candidate_dist_ref(*args, exact=exact)
-    if Ct > _MAX_GRID_Y * 64:
-        raise ValueError(f"candidate_dist: Ct={Ct} slots per table exceed {_MAX_GRID_Y * 64}")
     return _dist_launch(
         "candidate_dist", q, K, L * Ct,
         lambda lib, q2, d2, hw, stream: lib.candidate_dist_launch(

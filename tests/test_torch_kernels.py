@@ -977,6 +977,152 @@ def test_window_dist_kernel_all_invalid(cuda, exact):
     assert torch.isinf(d2).all() and torch.isinf(hw).all()
 
 
+# B4/B5's edges: integer-valued inputs make every sum exact in float32, so
+# both forms equal the twin bit for bit whatever the order of the sums
+
+
+def _int_dist_window(seed, Q, L, M, nb, B, K, d, *, p_invalid=0.2):
+    """B4 inputs in small integers: block ids drawn from every table, a
+    share of them invalid (-1, the sentinel L*nb, 2^20) between valid ones;
+    the last block's back half +inf-padded."""
+    rng = np.random.default_rng(seed)
+    lnb = L * nb
+    proj = rng.integers(-3, 4, (lnb, B, K)).astype(np.float32)
+    vec = rng.integers(-2, 3, (lnb, B, d)).astype(np.float32)
+    nrm = np.sum(vec * vec, axis=-1).astype(np.float32)
+    proj[-1, B // 2:] = np.inf
+    nrm[-1, B // 2:] = np.inf
+    blk = rng.integers(0, lnb, (Q, L * M)).astype(np.int32)
+    bad = rng.random((Q, L * M)) < p_invalid
+    blk[bad] = rng.choice(np.array([-1, lnb, 1 << 20], np.int32), int(bad.sum()))
+    g = rng.integers(-3, 4, (Q, L, K)).astype(np.float32)
+    q = rng.integers(-2, 3, (Q, d)).astype(np.float32)
+    return blk, proj, vec, nrm, g, q
+
+
+def _int_dist_cand(seed, Q, L, Ct, K, d):
+    """B5 inputs in small integers; every 7th slot invalid (+inf projection
+    and norm)."""
+    rng = np.random.default_rng(seed)
+    cp = rng.integers(-3, 4, (Q, L, Ct, K)).astype(np.float32)
+    cv = rng.integers(-2, 3, (Q, L, Ct, d)).astype(np.float32)
+    cn = np.sum(cv * cv, axis=-1).astype(np.float32)
+    cp[:, :, ::7] = np.inf
+    cn[:, :, ::7] = np.inf
+    g = rng.integers(-3, 4, (Q, L, K)).astype(np.float32)
+    q = rng.integers(-2, 3, (Q, d)).astype(np.float32)
+    return cp, cv, cn, g, q
+
+
+def _dist_bits(kind, args, exact, device, M=None, misalign=False):
+    """B4 (kind 'window') or B5 ('cand') on the card, one launch, both
+    outputs bit-equal to the twin; with ``misalign``, the vectors, the
+    projections and the queries on bases not 16-byte aligned (element
+    copies), and bit-equal to the aligned call too.  Returns (d2, hw)."""
+    ts = _td(args, device)
+    name, fn = ("window_dist", window_dist) if kind == "window" else (
+        "candidate_dist", candidate_dist)
+    kw = dict(exact=exact, **({"M": M} if kind == "window" else {}))
+    moved = [(_misaligned(t) if misalign and i in (1, 2, 5) else t)
+             for i, t in enumerate(ts)] if kind == "window" else [
+        (_misaligned(t) if misalign and i in (0, 1, 4) else t) for i, t in enumerate(ts)]
+    before = launches[name]
+    got = fn(*moved, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    ref = (twin.window_dist_ref if kind == "window" else twin.candidate_dist_ref)(*ts, **kw)
+    assert torch.equal(got[1], ref[1]), "hw"
+    assert torch.equal(got[0], ref[0]), "d2"
+    if misalign:
+        aligned = fn(*ts, **kw)
+        assert torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "cand"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_dist_kernels_walk_many_units(cuda, kind, exact):
+    """5,000 units of 64 rows at the main widths: several times the
+    persistent grid's blocks, so every block refills its stage."""
+    if kind == "window":
+        args = _int_dist_window(11, 200, 5, 5, 40, 64, 10, 64)
+        _dist_bits(kind, args, exact, cuda, M=5)
+    else:
+        _dist_bits(kind, _int_dist_cand(12, 200, 5, 320, 10, 64), exact, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows", [("window", 7), ("window", 100), ("window", 130),
+                                       ("cand", 1), ("cand", 65), ("cand", 100),
+                                       ("cand", 333)])
+@pytest.mark.parametrize("exact", [False, True])
+def test_dist_kernels_ragged_units(cuda, kind, rows, exact):
+    """A block of B != 64 rows (B4: 7, 100 = 64 + 36, 130 = 64 + 64 + 2)
+    and Ct not a multiple of the 64-slot unit (B5): ragged units."""
+    if kind == "window":
+        _dist_bits(kind, _int_dist_window(rows, 6, 3, 4, 9, rows, 10, 64), exact, cuda, M=4)
+    else:
+        _dist_bits(kind, _int_dist_cand(rows, 6, 3, rows, 10, 64), exact, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "cand"])
+@pytest.mark.parametrize("d", [12, 33])
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_dist_kernels_element_loads(cuda, kind, d, misalign, exact):
+    """d = 12 (16-byte rows on an aligned base; element copies when the
+    base is moved) and d = 33 (element copies always), also with the
+    projections (even K) and the queries on unaligned bases."""
+    if kind == "window":
+        _dist_bits(kind, _int_dist_window(d, 9, 3, 5, 12, 64, 10, d), exact, cuda, M=5,
+                   misalign=misalign)
+    else:
+        _dist_bits(kind, _int_dist_cand(d, 9, 3, 150, 10, d), exact, cuda, misalign=misalign)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "cand"])
+@pytest.mark.parametrize("K", [1, 5, 7])
+@pytest.mark.parametrize("exact", [False, True])
+def test_dist_kernels_odd_k(cuda, kind, K, exact):
+    """Odd K: the projections in 4-byte copies, read one word at a time."""
+    if kind == "window":
+        _dist_bits(kind, _int_dist_window(K, 7, 3, 5, 12, 64, K, 64), exact, cuda, M=5)
+    else:
+        _dist_bits(kind, _int_dist_cand(K, 7, 3, 130, K, 64), exact, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+def test_window_dist_kernel_invalid_blocks(cuda, exact):
+    """Invalid block ids (-1, L*nb, 2^20) between valid ones, and a query
+    whose every block is invalid: +inf in both outputs on exactly those
+    slots, bit-equal to the twin elsewhere."""
+    Q, L, M, nb, B, K, d = 6, 3, 5, 12, 64, 10, 64
+    args = _int_dist_window(21, Q, L, M, nb, B, K, d, p_invalid=0.4)
+    args[0][2] = np.array([-1, L * nb, 1 << 20] * 5, np.int32)
+    d2, hw = _dist_bits("window", args, exact, cuda, M=M)
+    blk = torch.from_numpy(args[0]).to(cuda)
+    invalid = torch.repeat_interleave((blk < 0) | (blk >= L * nb), B, dim=1)
+    assert bool(invalid[2].all()) and bool((~invalid).any())
+    assert torch.isinf(d2[invalid]).all() and torch.isinf(hw[invalid]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "cand"])
+@pytest.mark.parametrize("Q", [1, 5, 64, 200])
+@pytest.mark.parametrize("exact", [False, True])
+def test_dist_kernels_launch_shapes(cuda, kind, Q, exact):
+    """Q = 1 (fewer units than the grid could hold) to 200, at the main
+    widths, bit-equal to the twin on integer inputs."""
+    if kind == "window":
+        _dist_bits(kind, _int_dist_window(Q, Q, 5, 5, 30, 64, 10, 64), exact, cuda, M=5)
+    else:
+        _dist_bits(kind, _int_dist_cand(Q, Q, 5, 320, 10, 64), exact, cuda)
+
+
 def _pairwise_l2_twin(q, x):
     """B8's twin on the card, TF32 off."""
     allow = torch.backends.cuda.matmul.allow_tf32

@@ -106,11 +106,34 @@ Phases, each printing a line (with its seconds) when it passes:
                  64 and 1024 queries;
 12. profile    — one one-pass, multi-pass, bf16 and int8 search per engine
                  and batch under torch.profiler (profiled twice, the trace
-                 holding more device ops kept): device busy time against
+                 holding more device ops kept; each session first runs a
+                 few spin kernels, left out of every figure, since the
+                 device records of the first kernels after the profiler
+                 starts can go missing): device busy time against
                  the wall time, device ops, device time per one-pass stage
                  (project, select, verify, merge: the device ops inside the
-                 stage's device-side range), our kernels' device time
-                 per launch (B3 per mode) and the top device ops.
+                 stage's device-side range; every stage must read device
+                 time), our kernels' device time per launch (B3 per mode)
+                 and the top device ops;
+13. collection — the entry point a user calls, ``repro_torch.store``, on the
+                 main workload: ``Collection.create`` with the generator in
+                 the state main_workload built from (its index equal to
+                 main_workload's); ``search`` at Q = 64 on inline and kernel
+                 (B1 and B2 launched, results equal to
+                 ``search_batch_fixed``'s; wall of both); ``calibrate`` on
+                 256 held-out queries (inline, measure_ms) with its recall
+                 non-decreasing in steps, ``plan(RecallTarget(0.9))`` and a
+                 search with the plan; ``add`` 10,000 and ``remove``
+                 10,000 (no deleted id returned, recall@10 over the live
+                 points >= 0.5, no compaction triggered); ``snapshot`` into
+                 a temporary directory under ``build/`` and
+                 ``restore_collection`` onto the card (searches, calibration
+                 table, stats equal, a fresh version; bytes and seconds);
+                 the same round on the int8 index (re-quantized blocks and
+                 int8 searches equal); ``compact`` of a 100k-point
+                 collection with ``calibrate(..., retain=True)`` (the table
+                 re-fit equal to a fresh calibration, payload rows aligned,
+                 no deleted point returned).
 
 Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
@@ -123,9 +146,11 @@ import dataclasses
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -624,12 +649,13 @@ def stage_ms(events, on_card, stages) -> dict:
     return out
 
 
-def main_workload(gen, dev):
+def main_workload(gen, dev, states=None):
     """The main path's workload on the card, drawn from ``gen``: N points
     of dimension D (clustered, 250 clusters, spread 0.02, normalize_scale),
     N_QUERIES_LARGE queries, and the index built with derive(c=1.5, t=64,
     k=K_NN, K=10, L=5, inline_vectors=True).  Returns (data, queries,
-    params, index)."""
+    params, index); ``states``, a list, gets the generator's state just
+    before the build."""
     from repro_torch.core import DBLSHParams, build
     from repro_torch.data import make_clustered, normalize_scale
 
@@ -639,6 +665,8 @@ def main_workload(gen, dev):
     del pts
     params = DBLSHParams.derive(n=N, d=D, c=1.5, t=64, k=K_NN, K=10, L=5,
                                 inline_vectors=True)
+    if states is not None:
+        states.append(gen.get_state())
     return data, queries, params, build(data, params, generator=gen, device=dev)
 
 
@@ -1016,7 +1044,8 @@ def main() -> int:
 
     # -------------------------------------------------------- 3. main path
     t0 = time.perf_counter()
-    data, queries, params, index = main_workload(gen, dev)
+    build_state = []  # the generator's state at the build, for phase 13
+    data, queries, params, index = main_workload(gen, dev, build_state)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     check((params.block_size, params.max_blocks) == (64, 5),
@@ -1632,14 +1661,15 @@ def main() -> int:
     # at both batches, with their device time and, for B8, the library's
     # matrix: torch.cdist (TF32 off; the matrix up to its square root, on the
     # same fp32 or bf16 inputs) and the product Q @ X.T alone
-    extra = [(name if Qn == N_QUERIES else f"{name}@{Qn}", name, pool_calls[name, Qn, False],
-              pool_launches[name]) for name in POOL for Qn in (N_QUERIES, N_QUERIES_LARGE)]
+    extra_rows = [(name if Qn == N_QUERIES else f"{name}@{Qn}", name,
+                   pool_calls[name, Qn, False], pool_launches[name])
+                  for name in POOL for Qn in (N_QUERIES, N_QUERIES_LARGE)]
     for Qn, Qb in ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k)):
         for dt in ("fp32", "bf16"):
             qa, xa = (Qb, data) if dt == "fp32" else (Qb.to(torch.bfloat16), X16)
-            extra.append((f"pairwise_l2[{dt}]" + ("" if Qn == N_QUERIES else f"@{Qn}"),
-                          "pairwise_l2", ((qa, xa), {}), l2_launches[dt]))
-    for name, wrapper, (a, k), count in extra:
+            extra_rows.append((f"pairwise_l2[{dt}]" + ("" if Qn == N_QUERIES else f"@{Qn}"),
+                               "pairwise_l2", ((qa, xa), {}), l2_launches[dt]))
+    for name, wrapper, (a, k), count in extra_rows:
         ms = cuda_ms(torch, lambda: wrappers[wrapper](*a, **k), iters=50)
         plain_ms = cuda_ms(torch, lambda: twins[wrapper](*a, **k), iters=5)
         dev_us, dev_how = device_us(torch, lambda: wrappers[wrapper](*a, **k),
@@ -1729,6 +1759,14 @@ def main() -> int:
                 for attempt in range(4):
                     with profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
+                        # the device records of the first kernels after the
+                        # profiler starts can go missing (they were
+                        # project's, the first stage), so a few spin
+                        # kernels go first, left out below, then a sync
+                        for _ in range(8):
+                            torch.cuda._sleep(1000)
+                        torch.cuda.synchronize()
+                        time.sleep(0.002)
                         t0 = time.perf_counter()
                         searches[path](Qb, engine)
                         torch.cuda.synchronize()
@@ -1737,20 +1775,20 @@ def main() -> int:
                     # as device-side ranges, which span time rather than fill it
                     events = prof.events()
                     on_card = [e for e in events
-                               if e.device_type.name == "CUDA" and e.name not in stages]
+                               if e.device_type.name == "CUDA" and e.name not in stages
+                               and "spin_kernel" not in e.name]
                     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
                     traces.append((len(on_card), busy_ms, prof_ms, on_card,
                                    stage_ms(events, on_card, stages)))
                     best = max(traces, key=lambda tr: tr[0])
-                    if attempt >= 1 and all(best[4][key] for key in ("select", "verify", "merge")):
+                    if attempt >= 1 and all(best[4].values()):
                         break
                 row = f"{path} Q={Qn} {engine}"
                 if len({tr[0] for tr in traces}) > 1:
                     lost.append(f"{row}: " + " / ".join(str(tr[0]) for tr in traces) + " ops, "
                                 + " / ".join(f"{tr[1]:.3f}" for tr in traces) + " busy ms")
                 _, busy_ms, prof_ms, on_card, span_ms = best
-                unattributed += [(row, key) for key in ("select", "verify", "merge")
-                                 if not span_ms[key]]
+                unattributed += [(row, key) for key in span_ms if not span_ms[key]]
                 by_name = {}
                 for e in on_card:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1e3
@@ -1777,8 +1815,179 @@ def main() -> int:
     check(not unattributed, f"profile: stages that ran read no device time: {unattributed}")
     print(f"[profile] rows whose traces differ in device ops (the largest kept): "
           f"{lost or 'none'}", flush=True)
-    print(f"[profile] ok ({phase_s():.1f} s); the whole run took "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[profile] ok ({phase_s():.1f} s)", flush=True)
+
+    # ------------------------------------- 13. the collection entry point
+    from repro_torch.store import Collection, restore_collection
+    from repro_torch.tune import RecallTarget
+    from repro_torch.tune import calibrate as tune_calibrate
+
+    fields = ("proj_vecs", "proj_blocks", "ids_blocks", "mbr_lo", "mbr_hi", "data",
+              "vec_blocks", "norm_blocks", "qvec_blocks", "qvec_scale")
+
+    def same_index(a, b) -> bool:
+        return a.params == b.params and all(torch.equal(getattr(a, f), getattr(b, f))
+                                            for f in fields)
+
+    def same_search(a, b) -> bool:
+        return bit_equal(torch, a, b) and all(torch.equal(a[2][k_], b[2][k_]) for k_ in b[2])
+
+    # create: the generator in the state main_workload built from
+    cgen = torch.Generator(device=dev)
+    cgen.set_state(build_state[0])
+    t0 = time.perf_counter()
+    col = Collection.create("main", cgen, data, params=params)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    check(col.device.type == "cuda" and same_index(col.index, index),
+          "Collection.create: its index differs from main_workload's")
+
+    # search: B1 (inline) and B2 (kernel), each with the counts at 0 just
+    # before it, against search_batch_fixed on the same index and arguments
+    ckw = dict(k=K_NN, r0=R0, steps=STEPS, with_stats=True)
+    col_launches = {}
+    for e, name in (("inline", "fused_window_search"), ("kernel", "fused_cand_search")):
+        kernels.reset_launches()
+        got = col.search(Q64, engine=e, **ckw)
+        torch.cuda.synchronize()
+        col_launches[e] = {n_: c_ for n_, c_ in kernels.launches.items() if c_}
+        check(col_launches[e].get(name, 0) > 0, f"Collection.search({e!r}) never launched {name}")
+        check(same_search(got, search_batch_fixed(index, Q64, engine=e, **kw)),
+              f"Collection.search({e!r}) differs from search_batch_fixed")
+    col_wall = {}
+    for e in ("inline", "kernel"):  # ABBA: Collection, plain, plain, Collection
+        fns = {"collection": lambda e=e: col.search(Q64, engine=e, **ckw),
+               "search_batch_fixed": lambda e=e: search_batch_fixed(index, Q64, engine=e, **kw)}
+        got = {name: [] for name in fns}
+        for name in ("collection", "search_batch_fixed", "search_batch_fixed", "collection"):
+            got[name].append(wall_ms(torch, fns[name], repeats=5))
+        col_wall[e] = {name: statistics.median(v) for name, v in got.items()}
+    print(f"[collection] create (n={N}, on the card) in {create_s:.2f} s, index equal to "
+          f"main_workload's; search at Q={N_QUERIES} equal to search_batch_fixed, launches "
+          f"{json.dumps(col_launches)}; median wall ms {json.dumps(col_wall)}", flush=True)
+
+    # calibrate on held-out queries, plan a recall target, search with the plan
+    held = queries[N_QUERIES_LARGE - 256:].contiguous()
+    t0 = time.perf_counter()
+    table = col.calibrate(held, k=K_NN, steps_max=STEPS, engine="inline", measure_ms=True)
+    calibrate_s = time.perf_counter() - t0
+    check(all(b >= a - 1e-9 for a, b in zip(table.recall, table.recall[1:])),
+          f"calibrate: recall decreases with steps: {table.recall}")
+    plan = col.plan(RecallTarget(0.9))
+    pd_, pi_ = col.search(Q64, engine="inline", k=K_NN, r0=plan.r0, steps=plan.steps,
+                          termination=plan.termination)
+    check(bool(torch.isfinite(pd_[:, 0]).all()), "the planned search found nothing for a query")
+    plan_sets = idsets(torch, pd_, pi_)
+    plan_recall = sum(len(a & b) for a, b in zip(plan_sets, gt_sets)) / (N_QUERIES * K_NN)
+    print(f"[collection] calibrate (256 held-out queries, inline, measure_ms) in "
+          f"{calibrate_s:.2f} s: {json.dumps(table.to_dict())}; plan(RecallTarget(0.9)) = "
+          f"r0 {plan.r0:.6f}, steps {plan.steps}, {plan.termination}; recall@{K_NN} of its "
+          f"search at Q={N_QUERIES} {plan_recall:.4f}", flush=True)
+
+    # updates: the inserts and deletes of phase 8, so its live ground truth holds
+    t0 = time.perf_counter()
+    new_ids = col.add(extra)
+    id_map = col.remove(victims)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    check(np.array_equal(new_ids, np.arange(N, N + N_INSERT)), "add: unexpected ids")
+    check(id_map is None and col.stats.compactions == 0 and not col.should_compact(),
+          "add/remove triggered a compaction")
+    check(col.live_count() == n_all - N_DELETE, "remove: wrong live count")
+    col_upd = {}
+    for e in ("inline", "kernel"):
+        dd, ii = col.search(Q64, engine=e, k=K_NN, r0=R0, steps=STEPS)
+        sets = idsets(torch, dd, ii)
+        check(not victim_set & set().union(*sets), f"collection {e}: a removed id returned")
+        col_upd[e] = sum(len(a & b) for a, b in zip(sets, gt_live)) / (N_QUERIES * K_NN)
+        check(col_upd[e] >= 0.5, f"collection {e}: recall@{K_NN} over the live points "
+              f"{col_upd[e]}")
+    print(f"[collection] add {N_INSERT} + remove {N_DELETE} in {update_s:.3f} s, no "
+          f"compaction; recall@{K_NN} over the live points {json.dumps(col_upd)}", flush=True)
+
+    # snapshot / restore round trips (fp32, then the int8 index) under build/
+    snap_root = ROOT / "build"
+    snap_root.mkdir(exist_ok=True)
+    snap_dir = Path(tempfile.mkdtemp(prefix="collection_snapshot_", dir=snap_root))
+    snap = {}
+    try:
+        for label, c_, dt in (("fp32", col, "fp32"),
+                              ("int8", Collection.from_index("main-int8", quant_index["int8"]),
+                               "int8")):
+            before = {e: c_.search(Q64, engine=e, dtype=dt, **ckw) for e in ("inline", "kernel")}
+            where = snap_dir / label
+            t0 = time.perf_counter()
+            step = c_.snapshot(str(where))
+            snap_s = time.perf_counter() - t0
+            nbytes = sum(f_.stat().st_size for f_ in (where / f"step_{step:08d}").iterdir())
+            t0 = time.perf_counter()
+            back = restore_collection(str(where))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(back.device.type == "cuda" and same_index(back.index, c_.index),
+                  f"restore ({label}): the index differs")
+            check(back.version > c_.version and back.stats == c_.stats
+                  and back.built_n == c_.built_n and back.policy == c_.policy
+                  and np.array_equal(back._key, c_._key)
+                  and json.dumps(None if back.calibration is None else back.calibration.to_dict())
+                  == json.dumps(None if c_.calibration is None else c_.calibration.to_dict()),
+                  f"restore ({label}): the lifecycle state differs")
+            for e in ("inline", "kernel"):
+                check(same_search(back.search(Q64, engine=e, dtype=dt, **ckw), before[e]),
+                      f"restore ({label}): {e} search differs from before the snapshot")
+            snap[label] = {"bytes": nbytes, "snapshot_s": round(snap_s, 3),
+                           "restore_s": round(restore_s, 3)}
+            del back
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    print(f"[collection] snapshot -> restore_collection onto the card, searches equal "
+          f"(fp32 and int8, inline and kernel), table/stats/key equal, fresh version: "
+          f"{json.dumps(snap)}", flush=True)
+    del col
+
+    # compact a 100k collection (see phase 8) with a retained calibration
+    sub_params = DBLSHParams.derive(n=N_COMPACT, d=D, c=1.5, t=64, k=K_NN, K=10, L=5,
+                                    inline_vectors=True)
+    sub_extra = extra[:N_INSERT // 10]
+    scol = Collection.create("sub", torch.Generator(device=dev).manual_seed(SEED + 5),
+                             data[:N_COMPACT], params=sub_params,
+                             payload=torch.arange(N_COMPACT, device=dev) * 7)
+    scol.add(sub_extra, payload=torch.arange(N_COMPACT, N_COMPACT + sub_extra.shape[0],
+                                             device=dev) * 7)
+    sub_victims = victims[victims < N_COMPACT]
+    scol.remove(sub_victims)
+    held64 = held[:N_QUERIES]
+    scol.calibrate(held64, k=K_NN, steps_max=STEPS, engine="inline", retain=True)
+    old_table, old_payload = scol.calibration, scol.payload.clone()
+    t0 = time.perf_counter()
+    id_map = torch.as_tensor(scol.compact(), device=dev)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    live_old = torch.nonzero(id_map >= 0)[:, 0]
+    check(scol.stats.compactions == 1 and scol.n == live_old.numel(), "compact: wrong count")
+    fresh = tune_calibrate(scol.index, held64, k=K_NN, steps_max=STEPS, engine="inline")
+    check(scol.calibration is not None and scol.calibration is not old_table
+          and (scol.calibration.r0, scol.calibration.recall, scol.calibration.cost_slots)
+          == (fresh.r0, fresh.recall, fresh.cost_slots),
+          "compact: the retained calibration was not re-fit on the new index")
+    check(torch.equal(scol.payload[id_map[live_old].long()], old_payload[live_old]),
+          "compact: payload rows out of line with the id map")
+    dd, ii = scol.search(Q64, engine="inline", k=K_NN, r0=R0, steps=STEPS)
+    inv = torch.full((scol.n + 1,), -1, dtype=torch.long, device=dev)
+    inv[id_map[live_old].long()] = live_old
+    fin = torch.isfinite(dd)
+    old_ids = inv[ii.long()]
+    check(bool(fin[:, 0].all()) and not bool((old_ids[fin] < 0).any())
+          and not set(sub_victims.tolist()) & set(old_ids[fin].tolist()),
+          "compact: a query found nothing, or a removed point came back")
+    check(torch.equal(scol.get_payload(ii)[fin], old_ids[fin] * 7),
+          "compact: a returned id's payload is not its point's")
+    print(f"[collection] compact of a {N_COMPACT + sub_extra.shape[0]}-point collection to "
+          f"{scol.n} in {compact_s:.3f} s (K={scol.index.params.K} L={scol.index.params.L}, "
+          f"re-derived); table re-fit (recall {json.dumps(scol.calibration.recall)}, was "
+          f"{json.dumps(old_table.recall)}); payload aligned ({phase_s():.1f} s); the whole "
+          f"run took {time.perf_counter() - t_start:.1f} s", flush=True)
+    del scol
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -14,7 +14,7 @@
 """
 
 from .params import DBLSHParams, alpha_of_gamma, rho_star
-from .hashing import collision_prob, project, sample_projections
+from .hashing import collision_prob, normal_pdf, normal_sf, project, sample_projections
 from .index import DBLSHIndex, build, compute_norm_blocks, from_arrays, quantize_blocks
 from .query import merge_dedup_topk, probe_radius, rc_nn, search, search_batch
 from .baselines import brute_force

@@ -15,7 +15,7 @@ import torch
 
 from ..device import full_fp32
 
-__all__ = ["sample_projections", "project", "collision_prob"]
+__all__ = ["sample_projections", "project", "collision_prob", "normal_pdf", "normal_sf"]
 
 
 def sample_projections(generator: torch.Generator, d: int, K: int, L: int,
@@ -33,6 +33,18 @@ def project(data: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     table-major (the layout the STR index consumes).  Full fp32."""
     with full_fp32():
         return torch.einsum("lkd,nd->lnk", proj, data)
+
+
+def normal_pdf(x):
+    """pdf f(x) of the standard normal distribution (float32)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return torch.exp(-0.5 * torch.square(x)) / math.sqrt(2.0 * math.pi)
+
+
+def normal_sf(x):
+    """Survival function ∫_x^∞ f(t) dt of the standard normal (float32)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return 0.5 * (1.0 - torch.special.erf(x / math.sqrt(2.0)))
 
 
 def collision_prob(tau, w):

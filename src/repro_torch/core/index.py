@@ -224,16 +224,21 @@ def from_arrays(arrays: dict, params: dict, *, device=None) -> DBLSHIndex:
     params (the shape of the reference's snapshot tree and meta).  The
     quantized blocks are derived state, as in the reference's restore:
     with ``params["quant_dtype"] != "none"`` they are re-derived from
-    ``data`` and ``ids_blocks``, and any given in ``arrays`` are ignored."""
+    ``data`` and ``ids_blocks``, and any given in ``arrays`` are ignored.
+    Snapshots from before the norm cache lack ``norm_blocks``: it is
+    rebuilt from ``data`` and ``ids_blocks``, as the reference's restore
+    does."""
     device = resolve_device(device)
-    missing = [f for f in _ARRAY_FIELDS if f not in arrays]
+    missing = [f for f in _ARRAY_FIELDS if f not in arrays and f != "norm_blocks"]
     if missing:
         raise ValueError(f"arrays lack index fields {missing}")
     tensors = {
         f: as_tensor(np.ascontiguousarray(arrays[f]), device,
                      torch.int32 if f == "ids_blocks" else torch.float32)
-        for f in _ARRAY_FIELDS
+        for f in _ARRAY_FIELDS if f in arrays
     }
+    if "norm_blocks" not in tensors:
+        tensors["norm_blocks"] = compute_norm_blocks(tensors["data"], tensors["ids_blocks"])
     params = DBLSHParams(**params)
     if params.quant_dtype != "none":
         qvec = quantize_blocks(tensors["data"], tensors["ids_blocks"], params.quant_dtype)

@@ -15,7 +15,29 @@ import torch
 
 from ..device import full_fp32, resolve_device
 
-__all__ = ["make_clustered", "normalize_scale"]
+__all__ = ["make_clustered", "make_uniform", "paper_dataset_specs", "normalize_scale"]
+
+# Table III of the paper (cardinality, dimensionality).
+paper_dataset_specs = {
+    "audio": (54_387, 192),
+    "mnist": (60_000, 784),
+    "cifar": (60_000, 1024),
+    "trevi": (101_120, 4096),
+    "nus": (269_648, 500),
+    "deep1m": (1_000_000, 256),
+    "gist": (1_000_000, 960),
+    "sift10m": (10_000_000, 128),
+    "tiny80m": (79_302_017, 384),
+    "sift100m": (100_000_000, 128),
+}
+
+
+def make_uniform(generator: torch.Generator, n: int, d: int, *, device=None) -> torch.Tensor:
+    """Uniform points in [-1, 1)^d, drawn on the generator's device; the
+    result lies on ``device`` (the CUDA device when None)."""
+    device = resolve_device(device)
+    u = torch.rand((n, d), generator=generator, device=generator.device)
+    return (u * 2.0 - 1.0).to(device)
 
 
 def make_clustered(

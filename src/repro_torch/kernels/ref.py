@@ -19,6 +19,7 @@ __all__ = [
     "pool_d2",
     "take_fill",
     "bins_from_pool",
+    "fused_search_ref",
     "fused_window_search_ref",
     "fused_cand_search_ref",
     "window_verify_ref",
@@ -148,6 +149,10 @@ def bins_from_pool(d2, hw, ids, halves, n: int, ks: int):
         bis.append(bi)
     return (torch.stack(bds, 1), torch.stack(bis, 1),
             torch.stack(cnts, 1).to(torch.int32))
+
+
+#: the reference's name for the pool oracle of the fused kernels' bins
+fused_search_ref = bins_from_pool
 
 
 def take_fill(table: torch.Tensor, idx: torch.Tensor, fill):

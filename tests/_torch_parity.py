@@ -100,6 +100,12 @@ __all__ = [
     "candidate_dist_both",
     "pairwise_l2_both",
     "gather_pool",
+    "integer_projections",
+    "key",
+    "ref_exports",
+    "ref_modules",
+    "resilience_fixture",
+    "store_fixture",
 ]
 
 INDEX_FIELDS = (
@@ -354,3 +360,77 @@ def gather_pool(index, blk_q: np.ndarray, G: np.ndarray, Q: np.ndarray, engine: 
     d2, hw = _gather_pool(index, jnp.asarray(blk_q), jnp.asarray(G), jnp.asarray(Q),
                           engine, exact, True)
     return np.asarray(d2), np.asarray(hw)
+
+
+def key(seed: int):
+    """``jax.random.key(seed)``: the key a reference entry point takes."""
+    return jax.random.key(seed)
+
+
+def ref_modules():
+    """The reference's collection-level packages, imported on first use
+    (``repro.store`` pulls in its service and router): a namespace with
+    ``checkpoint``, ``store``, ``tune``, ``hashing`` and ``data``."""
+    import importlib
+    import types
+
+    names = {
+        "checkpoint": "repro.checkpoint", "store": "repro.store", "tune": "repro.tune",
+        "hashing": "repro.core.hashing", "data": "repro.data",
+    }
+    return types.SimpleNamespace(**{k: importlib.import_module(v) for k, v in names.items()})
+
+
+def resilience_fixture():
+    """The data and queries of ``tests/test_resilience.py``'s fixture
+    (240 + 40 points, d = 12), and its build key."""
+    kd, kb = jax.random.split(jax.random.key(31))
+    allpts = make_clustered(kd, 280, 12, n_clusters=6, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:240], allpts[240:])
+    return np.array(data), np.array(queries), kb
+
+
+def store_fixture():
+    """The data and queries of ``tests/test_store.py``'s fixture (1200 +
+    32 points, d = 16), and its build key."""
+    kd, kb = jax.random.split(jax.random.key(17))
+    allpts = make_clustered(kd, 1232, 16, n_clusters=10, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:1200], allpts[1200:])
+    return np.array(data), np.array(queries), kb
+
+
+class integer_projections:
+    """Inside the block, every hash family the reference draws (``build``,
+    ``compact``) is small integers from ``numpy`` under ``seed``; the
+    arrays drawn are kept in ``self.drawn``, so the port can be handed
+    the same ones.  With integer data every projection is then exact in
+    float32 in both frameworks."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.drawn: list[np.ndarray] = []
+
+    def __enter__(self):
+        from repro.core import index as ridx
+
+        self._mod, self._orig = ridx.hashing, ridx.hashing.sample_projections
+
+        def draw(key, d, K, L):
+            a = self.rng.integers(-2, 3, (L, K, d)).astype(np.float32)
+            self.drawn.append(a)
+            return jnp.asarray(a)
+
+        self._mod.sample_projections = draw
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sample_projections = self._orig
+        return False
+
+
+def ref_exports(module: str) -> list[str]:
+    """``__all__`` of the reference module ``repro.<module>`` (``""``: the
+    package itself)."""
+    import importlib
+
+    return list(importlib.import_module("repro" + (f".{module}" if module else "")).__all__)

@@ -18,7 +18,8 @@ from repro_torch.core import (  # noqa: E402
     search_batch_fixed_dispatch,
     search_batch_fixed_ref,
 )
-from repro_torch.data import make_clustered  # noqa: E402
+from repro_torch.data import make_clustered, make_uniform  # noqa: E402
+from repro_torch.store import Collection, restore_collection  # noqa: E402
 from repro_torch.core.serve_search import _gather_pool  # noqa: E402
 from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
 
@@ -31,6 +32,8 @@ sys.modules["jaxlib"] = None
 sys.modules["repro"] = None
 import torch
 import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels
+import repro_torch.checkpoint, repro_torch.resilience, repro_torch.tune
+import repro_torch.obs, repro_torch.store
 from repro_torch.core import (DBLSHParams, Termination, brute_force, build, search_batch,
                               search_batch_fixed, search_batch_fixed_ref)
 from repro_torch.data import make_clustered, normalize_scale
@@ -53,6 +56,19 @@ for engine in ("torch", "kernel", "inline"):
                        termination=Termination(), with_explain=True, device="cpu")
 d, i = search_batch(index, queries, k=5, r0=0.5)
 assert d.shape == (48, 5) and torch.isfinite(d[:, 0]).all()
+import tempfile
+from repro_torch.store import Collection, restore_collection
+from repro_torch.tune import RecallTarget
+col = Collection.create("iso", gen, data, params=params, engine="inline", device="cpu")
+col.calibrate(queries[:16], k=5, steps_max=3, retain=True)
+plan = col.plan(RecallTarget(0.5))
+col.search(queries, k=5, r0=plan.r0, steps=plan.steps, termination=plan.termination)
+col.remove(col.add(queries[:4])[:2])
+with tempfile.TemporaryDirectory() as tmp:
+    col.snapshot(tmp)
+    back = restore_collection(tmp, device="cpu")
+assert torch.equal(back.search(queries, k=5)[1], col.search(queries, k=5)[1])
+col.compact()
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
@@ -83,15 +99,17 @@ def test_sources_import_neither_jax_nor_reference():
                 assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
-def test_entry_points_need_a_device_without_cuda():
+def test_entry_points_need_a_device_without_cuda(tmp_path):
     """With no CUDA device, leaving ``device`` out raises instead of
-    quietly running on the CPU."""
+    quietly running on the CPU (a restore raises before it reads the
+    snapshot)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None resolves to it")
     gen = torch.Generator().manual_seed(0)
     data = torch.randn(64, 4, generator=gen)
     params = DBLSHParams.derive(n=64, d=4, k=2, K=2, L=1, block_size=8)
     index = build(data, params, generator=gen, device="cpu")
+    Collection.from_index("c", index).snapshot(str(tmp_path))
     calls = (
         lambda: repro_torch.resolve_device(),
         lambda: make_clustered(gen, 16, 4),
@@ -100,6 +118,10 @@ def test_entry_points_need_a_device_without_cuda():
         lambda: search_batch_fixed(index, data[:2], k=2),
         lambda: search_batch_fixed_ref(index, data[:2], k=2),
         lambda: search_batch_fixed_dispatch(index, data[:2], k=2),
+        lambda: make_uniform(gen, 4, 2),
+        lambda: Collection.create("c", gen, data, params=params),
+        lambda: Collection.restore(str(tmp_path)),
+        lambda: restore_collection(str(tmp_path)),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -94,8 +94,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  the 10th distance, the bf16 id overlap printed;
 11. times      — median CUDA-event times of each kernel (B3 per mode) and
                  its twin at the shapes its path gives it, with the
-                 profiler's device time (and, for B4-B7, the host time of
-                 a call; for B4/B5 the exact form beside the norm form),
+                 profiler's device time and the host time of a call (for
+                 B4/B5 the exact form beside the norm form),
                  beside the least time the card could take (every
                  kernel at both batches; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
@@ -133,7 +133,30 @@ Phases, each printing a line (with its seconds) when it passes:
                  int8 searches equal); ``compact`` of a 100k-point
                  collection with ``calibrate(..., retain=True)`` (the table
                  re-fit equal to a fresh calibration, payload rows aligned,
-                 no deleted point returned).
+                 no deleted point returned);
+14. service    — the request scheduler, ``repro_torch.store.StoreService``
+                 (batch shapes 1/4/16/64, k = 10, r0 = 0.5, steps = 8), over
+                 the main index in a ``Collection`` with a payload: the
+                 1,024 queries submitted one at a time in arrival chunks,
+                 on inline and kernel, at inflight_depth 0 and 2, then
+                 flush: every ticket bit-equal to ``Collection.search`` on
+                 its own padded batch (all four shapes; stats and payload
+                 rows too), depth 0 == depth 2, one B1 (inline) or B2
+                 (kernel) launch per batch, recall@10 >= 0.5, no host sync
+                 in the issue stage at depth 2 (under
+                 ``torch.cuda.set_sync_debug_mode("error")``), a batch
+                 issued while another was in flight; QPS and p50/p99 ticket
+                 latency (medians of passes at depth 0 and 2 in turns, after
+                 a warm pass); a second pass served wholly from the cache (zero
+                 launches, equal tickets) and, after an ``add``, misses
+                 equal to ``Collection.search`` on the new version; two
+                 tenants' rejections against the token-bucket arithmetic on
+                 a fake clock; a transient ``dispatch.raise`` retried to the
+                 same results and a non-transient one failing its batch
+                 with ``DispatchFailed``; with tracing on, a ``batch.issue``
+                 span inside the previous batch's ``batch.pending`` window;
+                 the card's busy share over one profiled flush at depth 0
+                 and depth 2.
 
 Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
@@ -189,6 +212,11 @@ NORM_ATOL = 4e-6  # x (max ||x||^2 + max ||q||^2): the norm form's cancellation
 # kernel B3: the quantized modes of B1/B2, one record per instantiation
 B3 = {f"{w}[{m}]": (w, m) for w in FUSED for m in QUANT}
 B3_REPLACES = "src/repro/kernels/window_verify.py:270"  # _slot_d2, modes bf16/int8
+SVC_SHAPES = (1, 4, 16, 64)  # the service's batch shapes (phase 14)
+# phase 14's arrival chunks: batches of 64 (two of them, 128, in one step),
+# 16, 4 and 1, and partial fills 3 -> 4, 13 -> 16 and 40 -> 64
+SVC_CHUNKS = (64, 128, 16, 4, 1, 3, 13, 40)
+SVC_TURNS = (0, 2, 2, 0, 0, 2)  # phase 14's timed passes, per engine: depths in turns
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1650,8 +1678,7 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None,
         })
         q_rows = a[-2] if wrapper in VERIFY else a[7 if wrapper == "fused_window_search" else 6]
-        host = (f"host {host_us(torch, lambda: wrappers[wrapper](*a, **k)):.1f} us/call; "
-                if wrapper in VERIFY else "")
+        host = f"host {host_us(torch, lambda: wrappers[wrapper](*a, **k)):.1f} us/call; "
         print(f"[times] {name}: median {ms:.4f} ms/launch at Q={q_rows.shape[0]} "
               f"(device {dev_us:.1f} us by {dev_how}; {host}twin {plain_ms:.3f} "
               f"ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
@@ -1985,9 +2012,305 @@ def main() -> int:
     print(f"[collection] compact of a {N_COMPACT + sub_extra.shape[0]}-point collection to "
           f"{scol.n} in {compact_s:.3f} s (K={scol.index.params.K} L={scol.index.params.L}, "
           f"re-derived); table re-fit (recall {json.dumps(scol.calibration.recall)}, was "
-          f"{json.dumps(old_table.recall)}); payload aligned ({phase_s():.1f} s); the whole "
-          f"run took {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{json.dumps(old_table.recall)}); payload aligned ({phase_s():.1f} s)",
+          flush=True)
     del scol
+
+    # -------------------------------------------- 14. the request scheduler
+    from repro_torch.obs import Observability
+    from repro_torch.resilience import FaultPlan, faults
+    from repro_torch.store import DispatchFailed, QuotaExceeded, StoreService
+
+    # the main index behind a collection with a payload (each point's id),
+    # so the payload rows ride back with the tickets too
+    svc_col = Collection.from_index("svc", index,
+                                    payload=torch.arange(N, dtype=torch.int64, device=dev))
+    rows_h = queries[:N_QUERIES_LARGE].cpu().numpy()  # the queries, as clients send them
+    _, gt1k = brute_force(data, Q1k, k=K_NN, device=dev)
+    gt1k_sets = [set(r) for r in gt1k.cpu().tolist()]
+    fused_of = {"inline": "fused_window_search", "kernel": "fused_cand_search"}
+    svc_kw = dict(batch_shapes=SVC_SHAPES, default_k=K_NN, r0=R0, steps=STEPS)
+
+    def service(**kw):
+        """A StoreService over svc_col whose issued batches are logged:
+        (uids, shape, engine) per batch, in issue order."""
+        svc = StoreService(**{**svc_kw, **kw})
+        svc.attach(svc_col)
+        svc.batch_log = []
+        issue = svc._issue
+
+        def logged(name, reqs, engine=None, *a, **k):
+            svc.batch_log.append(([r.uid for r in reqs], svc._shape_for(len(reqs)), engine))
+            return issue(name, reqs, engine, *a, **k)
+
+        svc._issue = logged
+        return svc
+
+    def strict_issue(svc):
+        """Raise on any host sync inside the issue stage (the completion of
+        a batch that overflows the ring may wait: it is the complete
+        stage)."""
+        issue, complete = svc._issue, svc._complete
+
+        def strict(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return issue(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def lax(batch):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return complete(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        svc._issue, svc._complete = strict, lax
+
+    def drive(svc, rows, tenant="default"):
+        """Submit ``rows`` one at a time in arrival chunks of SVC_CHUNKS
+        (a step after each chunk: with max_wait_ms=0 every step drains
+        what is queued, so the chunks become batches of shapes 64, 16, 4
+        and 1, and a chunk of 128 two batches issued in one step), then
+        flush.  Returns the tickets and the wall seconds."""
+        tickets, start, t0 = [], 0, time.perf_counter()
+        for size in itertools.cycle(SVC_CHUNKS):
+            if start >= len(rows):
+                break
+            for q in rows[start:start + size]:
+                tickets.append(svc.submit("svc", q, tenant=tenant))
+            svc.step()
+            start += size
+        svc.flush()
+        return tickets, time.perf_counter() - t0
+
+    def check_tickets(svc, tickets, label):
+        """Every ticket against ``Collection.search`` on its own padded
+        batch (shape, rows and engine as logged), bit for bit, stats and
+        payload included; returns the shapes issued."""
+        by_uid = {t.uid: t for t in tickets}
+        shapes = set()
+        for uids, shape, engine in svc.batch_log:
+            reqs = [by_uid[u] for u in uids if u in by_uid]
+            if not reqs or any(r.error is not None for r in reqs):
+                continue
+            Qpad = np.zeros((shape, D), np.float32)
+            Qpad[:len(reqs)] = np.stack([r.query for r in reqs])
+            dd, ii, st = svc_col.search(torch.from_numpy(Qpad).to(dev), k=K_NN, r0=R0,
+                                        steps=STEPS, engine=engine, with_stats=True,
+                                        rows=len(reqs))
+            m = len(reqs)
+            check(np.array_equal(np.stack([r.dists for r in reqs]), dd[:m].cpu().numpy())
+                  and np.array_equal(np.stack([r.ids for r in reqs]), ii[:m].cpu().numpy())
+                  and [r.radius_steps for r in reqs] == st["radius_steps"][:m].tolist()
+                  and [r.candidates for r in reqs] == st["candidates"][:m].tolist(),
+                  f"service ({label}): a batch of shape {shape} differs from "
+                  "Collection.search on the same padded batch")
+            for r in reqs:
+                fin = np.isfinite(r.dists)
+                check(np.array_equal(r.payload[fin], r.ids[fin]),
+                      f"service ({label}): payload rows out of line with the ids")
+            shapes.add(shape)
+        return shapes
+
+    def recall_of(tickets):
+        return sum(len(set(t.ids[np.isfinite(t.dists)].tolist()) & g)
+                   for t, g in zip(tickets, gt1k_sets)) / (len(tickets) * K_NN)
+
+    # results: every engine and depth, against Collection.search; the
+    # issue stage under set_sync_debug_mode("error") at depth 2
+    runs, svc_numbers = {}, {}
+    for engine in ("inline", "kernel"):
+        for depth in (0, 2):
+            svc = service(engine=engine, inflight_depth=depth, max_wait_ms=0.0,
+                          cache_size=2 * N_QUERIES_LARGE)
+            if depth:
+                strict_issue(svc)
+            kernels.reset_launches()
+            tickets, wall_s = drive(svc, rows_h)
+            torch.cuda.synchronize()
+            launched = dict(kernels.launches)
+            errors = [t.error for t in tickets if t.error is not None]
+            check(not errors, f"service ({engine}, depth {depth}): {len(errors)} tickets "
+                  f"failed, the first: {errors[:1]!r}"
+                  + (f" (cause {errors[0].__cause__!r})" if errors else ""))
+            check(all(t.done and not t.cached for t in tickets),
+                  f"service ({engine}, depth {depth}): a ticket is not done, or cached")
+            n_batches = len(svc.batch_log)
+            check(launched[fused_of[engine]] == n_batches
+                  and sum(launched.values()) == n_batches,
+                  f"service ({engine}, depth {depth}): launches {launched} for "
+                  f"{n_batches} batches")
+            shapes = check_tickets(svc, tickets, f"{engine}, depth {depth}")
+            check(shapes == set(SVC_SHAPES), f"service ({engine}): shapes {shapes}")
+            recall = recall_of(tickets)
+            check(recall >= 0.5, f"service ({engine}, depth {depth}): recall@{K_NN} {recall}")
+            runs[engine, depth] = (svc, tickets)
+            svc_numbers[f"{engine}@depth{depth}"] = {
+                "batches": n_batches, "overlap_ratio": svc.stats("svc")["overlap_ratio"],
+                "recall": recall, "launches": launched[fused_of[engine]]}
+        a, b = runs[engine, 0][1], runs[engine, 2][1]
+        check(runs[engine, 0][0].batch_log == runs[engine, 2][0].batch_log
+              and all(np.array_equal(x.dists, y.dists) and np.array_equal(x.ids, y.ids)
+                      for x, y in zip(a, b)),
+              f"service ({engine}): depth 0 and depth 2 differ")
+        check(runs[engine, 2][0].stats("svc")["overlap_ratio"] > 0,
+              f"service ({engine}): no batch was issued while another was in flight")
+    print(f"[service] {N_QUERIES_LARGE} queries one at a time (chunks {SVC_CHUNKS}), "
+          f"batch shapes {SVC_SHAPES}: every ticket bit-equal to Collection.search on its "
+          f"padded batch (all four shapes), depth 0 == depth 2, one B1/B2 launch per "
+          f"batch, no host sync in the issue stage at depth 2 (set_sync_debug_mode): "
+          f"{json.dumps(svc_numbers)}", flush=True)
+
+    # QPS and ticket latency: after a warm pass per engine (the first batch
+    # of a shape pays one-time costs), depth 0 and 2 in turns, the same
+    # passes as above without the checks; each metric's median and readings
+    timing = {}
+    for engine in ("inline", "kernel"):
+        drive(service(engine=engine, max_wait_ms=0.0, cache_size=0), rows_h)
+        for depth in SVC_TURNS:
+            svc = service(engine=engine, inflight_depth=depth, max_wait_ms=0.0, cache_size=0)
+            _, wall_s = drive(svc, rows_h)
+            s = svc.stats("svc")
+            row = timing.setdefault(f"{engine}@depth{depth}",
+                                    {"qps": [], "p50_ms": [], "p99_ms": [], "wall_s": []})
+            for key, v in (("qps", s["qps"]), ("p50_ms", s["latency_ms_p50"]),
+                           ("p99_ms", s["latency_ms_p99"]), ("wall_s", wall_s)):
+                row[key].append(v)
+    medians = {name: {key: statistics.median(v) for key, v in row.items()}
+               for name, row in timing.items()}
+    print(f"[service] {card}: QPS and ticket latency, median of {SVC_TURNS.count(0)} "
+          f"passes of {N_QUERIES_LARGE} queries per engine and depth, in turns "
+          f"{SVC_TURNS}: {json.dumps(medians)}; readings {json.dumps(timing)}", flush=True)
+
+    # the cache: the same queries again on inline at depth 2, all hits,
+    # no launch; then an add (a new version): every one a miss, and equal
+    # to a fresh Collection.search of the grown index
+    svc, first = runs["inline", 2]
+    svc.batch_log = []
+    kernels.reset_launches()
+    again, hit_s = drive(svc, rows_h)
+    torch.cuda.synchronize()
+    check(all(t.cached for t in again) and not any(kernels.launches.values())
+          and not svc.batch_log,
+          f"cache: second pass launched {kernels.launches} or missed")
+    check(all(np.array_equal(x.dists, y.dists) and np.array_equal(x.ids, y.ids)
+              and np.array_equal(x.payload, y.payload) for x, y in zip(first, again)),
+          "cache: a hit differs from the first pass")
+    hit_stats = {"hit_rate": svc.cache_stats()["hit_rate"],
+                 "service_hit_rate": svc.stats("svc")["cache_hit_rate"],
+                 "pass_wall_s": round(hit_s, 4)}
+    old_version = svc_col.version
+    svc_col.add(extra[:1000], payload=torch.arange(N, N + 1000, device=dev))
+    check(svc_col.version != old_version, "add: the version did not change")
+    after, _ = drive(svc, rows_h[:256])
+    check(not any(t.cached for t in after) and not any(t.error for t in after),
+          "cache: a hit after add (stale)")
+    check_tickets(svc, after, "after add")
+    print(f"[service] {card}: cache: second pass all {N_QUERIES_LARGE} hits, zero launches, "
+          f"equal to the first ({json.dumps(hit_stats)}); after add(1000) 256 queries all "
+          f"missed and equal Collection.search on the new version", flush=True)
+
+    # tenants: two quotas on a fake clock, rejections against the
+    # token-bucket arithmetic done here
+    clock = {"t": 0.0}
+    svc = service(engine="inline", max_wait_ms=1.0, clock=lambda: clock["t"])
+    quotas = {"gold": (300.0, 8.0, 3), "bronze": (100.0, 2.0, 1)}
+    for tenant, (rate, burst, weight) in quotas.items():
+        svc.set_quota(tenant, rate=rate, burst=burst, weight=weight)
+    tokens = {t: max(1.0, q[1]) for t, q in quotas.items()}
+    last = {t: 0.0 for t in quotas}
+    want_rej, got_rej, admitted = {t: 0 for t in quotas}, {t: 0 for t in quotas}, []
+    for j, q in enumerate(rows_h[:512]):
+        tenant = "bronze" if j % 4 == 0 else "gold"
+        rate, burst, _ = quotas[tenant]
+        tokens[tenant] = min(max(1.0, burst), tokens[tenant] + (clock["t"] - last[tenant]) * rate)
+        last[tenant] = clock["t"]
+        ok = tokens[tenant] >= 1.0
+        tokens[tenant] -= 1.0 if ok else 0.0
+        want_rej[tenant] += not ok
+        try:
+            admitted.append(svc.submit("svc", q, tenant=tenant))
+        except QuotaExceeded:
+            got_rej[tenant] += 1
+        clock["t"] += 0.0016 if j % 7 else 0.006
+        svc.step()
+    svc.flush()
+    ts = svc.tenant_stats()
+    check(got_rej == want_rej and all(ts[t]["rejected"] == want_rej[t] for t in quotas)
+          and all(t.done and t.error is None for t in admitted),
+          f"quotas: rejected {got_rej} (stats {ts}), token-bucket arithmetic {want_rej}")
+    check_tickets(svc, admitted, "two tenants")
+
+    # faults: one transient dispatch.raise is retried and changes nothing;
+    # one non-transient raise fails its batch typed, and the run goes on
+    base = service(engine="kernel", cache_size=0).serve("svc", rows_h[:64])
+    svc = service(engine="kernel", cache_size=0, sleep=lambda s: None)
+    plan = FaultPlan().add("dispatch.raise", count=1, transient=True)
+    with faults.active(plan):
+        fd, fi, fr = svc.serve("svc", rows_h[:64])
+    check(len(plan.fired) == 1 and np.array_equal(fd, base[0]) and np.array_equal(fi, base[1])
+          and all(r.error is None for r in fr),
+          "faults: a transient dispatch.raise was not retried to the same result")
+    svc = service(engine="kernel", cache_size=0)
+    doomed = [svc.submit("svc", q) for q in rows_h[:16]]
+    with faults.active(FaultPlan().add("dispatch.raise", transient=False)):
+        svc.flush()
+    check(all(r.done and isinstance(r.error, DispatchFailed) for r in doomed)
+          and svc.stats("svc")["failed"] == 16 and svc.in_flight() == 0,
+          "faults: a non-transient raise did not fail every ticket of its batch")
+    print(f"[service] tenants: rejected {json.dumps(got_rej)} = the token-bucket "
+          f"arithmetic; admitted tickets equal Collection.search; a transient "
+          f"dispatch.raise retried to the same results; a non-transient one failed "
+          f"its 16 tickets with DispatchFailed", flush=True)
+
+    # the ring in the reference's own spans: at depth 2 some batch.issue
+    # lies inside the previous batch's batch.pending window; and the
+    # card's busy share over one profiled flush at depth 0 and depth 2
+    obs = Observability(trace=True)
+    try:
+        svc = service(engine="inline", inflight_depth=2, max_wait_ms=0.0, cache_size=0,
+                      obs=obs)
+        drive(svc, rows_h[:512])
+        spans = {(s.name, s.args.get("seq")): s for s in obs.tracer.events
+                 if s.name in ("batch.issue", "batch.pending")}
+    finally:
+        obs.tracer.disable()
+        obs.tracer.clear()
+    inside = []
+    for (name, seq), s in spans.items():
+        prev = spans.get(("batch.pending", seq - 1))
+        if name == "batch.issue" and prev is not None and \
+                prev.ts <= s.ts and s.ts + s.dur <= prev.ts + prev.dur:
+            inside.append(seq)
+    check(inside, "trace: no batch.issue lies inside the previous batch's pending window")
+    busy = {}
+    for depth in (0, 2):
+        svc = service(engine="inline", inflight_depth=depth, max_wait_ms=0.0, cache_size=0)
+        drive(svc, rows_h[:256])  # warm: the pinned blocks, the allocator
+        svc = service(engine="inline", inflight_depth=depth, max_wait_ms=0.0, cache_size=0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):  # see phase 12: the first records can go missing
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            _, flush_s = drive(svc, rows_h[256:512])
+            torch.cuda.synchronize()
+        dev_ms = sum(e.self_device_time_total for e in prof.events()
+                     if e.device_type.name == "CUDA" and e.name not in stages
+                     and "spin_kernel" not in e.name) / 1e3
+        check(dev_ms > 0, f"profile: no device time in the depth-{depth} flush")
+        busy[f"depth{depth}"] = {"device_ms": round(dev_ms, 3),
+                                 "wall_ms": round(flush_s * 1e3, 3),
+                                 "busy": round(dev_ms / (flush_s * 1e3), 4),
+                                 "batches": len(svc.batch_log)}
+    print(f"[service] trace: {len(inside)} batch.issue spans inside the previous batch's "
+          f"pending window (depth 2); {card}: device busy share over one profiled flush "
+          f"of 256 queries (inline) {json.dumps(busy)} ({phase_s():.1f} s); the whole "
+          f"run took {time.perf_counter() - t_start:.1f} s", flush=True)
+    del svc_col
 
     print(card)
     print(json.dumps({"kernels": records}))

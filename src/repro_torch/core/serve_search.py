@@ -42,7 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import kernels
-from ..device import as_tensor, full_fp32, resolve_device
+from ..device import as_tensor, full_fp32, resolve_device, upload
 from .index import DBLSHIndex
 from ..kernels.ref import pool_d2, slot_d2, take_fill
 from .query import first_of_group, lexsort, merge_dedup_topk
@@ -403,7 +403,9 @@ def search_batch_fixed(
     use_bins = engine in ("kernel", "inline") or quant
     ks = 4 * k if quant else k  # quantized: a top-4k shortlist per bin
     if use_bins or with_explain:
-        halves_t = torch.tensor(np.array(halves, np.float32), device=dev)
+        # staged through pinned memory: a pageable copy would make the
+        # host wait for the card here, and the search must not wait
+        halves_t = upload(np.array(halves, np.float32), dev)
     with record_function("dblsh.verify"):
         if use_bins:
             bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,

@@ -7,7 +7,7 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "full_fp32", "as_tensor"]
+__all__ = ["resolve_device", "full_fp32", "as_tensor", "upload"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,3 +46,18 @@ def as_tensor(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()
     return torch.as_tensor(x, dtype=dtype).to(device)
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device`` without a host wait.
+
+    On CUDA it goes through page-locked memory from torch's caching host
+    allocator (a pinned tensor is used as it is) and is copied with
+    ``non_blocking``: a copy from pageable memory synchronises the stream
+    first, which would make the host wait for all the work queued before
+    it.  The allocator keeps the pinned block until the copy is done.
+    Elsewhere the tensor is moved as usual."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -156,11 +156,16 @@ fused_search_ref = bins_from_pool
 
 
 def take_fill(table: torch.Tensor, idx: torch.Tensor, fill):
-    """``table[idx]`` along axis 0 with ``fill`` where idx is out of range."""
+    """``table[idx]`` along axis 0 with ``fill`` where idx is out of range.
+
+    ``fill`` is a Python number of the table's kind (an int for an
+    integer table), so the result keeps the table's dtype; it goes to
+    ``torch.where`` as a scalar, never as a CPU tensor, which ``where``
+    would copy to the card with a host wait."""
     valid = (idx >= 0) & (idx < table.shape[0])
     out = table[torch.where(valid, idx, 0).long()]
     valid = valid.reshape(valid.shape + (1,) * (table.dim() - 1))
-    return torch.where(valid, out, torch.as_tensor(fill, dtype=table.dtype))
+    return torch.where(valid, out, fill)
 
 
 def fused_window_search_ref(blk_idx, halves, proj_blocks, x_blocks, norm_blocks,

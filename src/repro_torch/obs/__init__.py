@@ -33,8 +33,7 @@ arithmetic per request).  The reference gates the enabled stack at 5 %
 of obs-off QPS (``benchmarks/store_throughput.py --obs``); the port has
 no such benchmark yet.
 
-Typical use (``StoreService`` comes with the port of ``store/service.py``;
-the tracer and the registry work without it)::
+Typical use::
 
     from repro_torch.store import Collection, StoreService
     from repro_torch.obs import Observability, SLOWatch

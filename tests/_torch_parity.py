@@ -105,7 +105,11 @@ __all__ = [
     "ref_exports",
     "ref_modules",
     "resilience_fixture",
+    "obs_fixture",
+    "scheduler_fixture",
+    "scheduler_property_points",
     "store_fixture",
+    "ref_collection_arrays",
 ]
 
 INDEX_FIELDS = (
@@ -397,6 +401,40 @@ def store_fixture():
     allpts = make_clustered(kd, 1232, 16, n_clusters=10, spread=0.02)
     data, queries, _ = normalize_scale(allpts[:1200], allpts[1200:])
     return np.array(data), np.array(queries), kb
+
+
+def obs_fixture():
+    """The data and queries of ``tests/test_obs.py``'s fixture (256 + 24
+    points, d = 12), and its build key."""
+    kd, kb = jax.random.split(jax.random.key(31))
+    allpts = make_clustered(kd, 280, 12, n_clusters=6, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:256], allpts[256:])
+    return np.array(data), np.array(queries), kb
+
+
+def scheduler_fixture():
+    """The data and queries of ``tests/test_store_scheduler.py``'s fixture
+    (400 + 22 points, d = 16), and its build key."""
+    kd, kb = jax.random.split(jax.random.key(23))
+    allpts = make_clustered(kd, 422, 16, n_clusters=8, spread=0.02)
+    data, queries, _ = normalize_scale(allpts[:400], allpts[400:])
+    return np.array(data), np.array(queries), kb
+
+
+def scheduler_property_points() -> np.ndarray:
+    """The 160 points (d = 8) of ``tests/test_store_scheduler.py``'s cache
+    property test, normalized as there."""
+    kd, _ = jax.random.split(jax.random.key(7))
+    pts = np.asarray(make_clustered(kd, 160, 8, n_clusters=4, spread=0.05))
+    pts, _, _ = normalize_scale(pts, pts[:1])
+    return np.asarray(pts, np.float32)
+
+
+def ref_collection_arrays(name: str, key, data: np.ndarray, **kw):
+    """A reference ``Collection.create(name, key, data, **kw)``, and its
+    index's arrays and params (for the port's ``from_arrays``)."""
+    col = ref_modules().store.Collection.create(name, key, data, **kw)
+    return col, index_arrays(col.index), index_params(col.index)
 
 
 class integer_projections:

@@ -24,12 +24,7 @@ from repro_torch.data import make_uniform, paper_dataset_specs  # noqa: E402
 WAITING = {
     "core": {"FBLSH", "MQIndex", "C2Index"},  # A16: baselines
     "core.baselines": {"FBLSH", "MQIndex", "C2Index"},  # A16
-    "store": {  # A11: service and cache; A15: router
-        "StoreService", "QueryRequest", "TenantQuota", "QuotaExceeded",
-        "DeadlineExceeded", "DispatchFailed", "BrownoutShed",
-        "QueryResultCache", "CachedResult",
-        "ShardedCollection", "open_collection",
-    },
+    "store": {"ShardedCollection", "open_collection"},  # A15: router
 }
 
 PORTED = (
@@ -39,7 +34,7 @@ PORTED = (
     "resilience", "resilience.faults", "resilience.stragglers", "resilience.degrade",
     "tune", "tune.adaptive", "tune.planner", "tune.policy",
     "obs", "obs.explain", "obs.metrics", "obs.slo", "obs.trace",
-    "store", "store.collection", "store.lifecycle",
+    "store", "store.cache", "store.collection", "store.lifecycle", "store.service",
 )
 
 

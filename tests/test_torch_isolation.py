@@ -19,7 +19,7 @@ from repro_torch.core import (  # noqa: E402
     search_batch_fixed_ref,
 )
 from repro_torch.data import make_clustered, make_uniform  # noqa: E402
-from repro_torch.store import Collection, restore_collection  # noqa: E402
+from repro_torch.store import Collection, StoreService, restore_collection  # noqa: E402
 from repro_torch.core.serve_search import _gather_pool  # noqa: E402
 from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
 
@@ -69,6 +69,15 @@ with tempfile.TemporaryDirectory() as tmp:
     back = restore_collection(tmp, device="cpu")
 assert torch.equal(back.search(queries, k=5)[1], col.search(queries, k=5)[1])
 col.compact()
+from repro_torch.store import QueryResultCache, StoreService
+from repro_torch.store.cache import CachedResult
+from repro_torch.store.service import QuotaExceeded
+svc = StoreService(batch_shapes=(1, 4), default_k=5, r0=0.5, steps=4)
+svc.attach(col)
+d, i, tickets = svc.serve("iso", queries[:5].numpy())
+assert d.shape == (5, 5) and not any(t.cached for t in tickets)
+assert all(t.cached for t in svc.serve("iso", queries[:5].numpy())[2])
+assert isinstance(svc.cache, QueryResultCache)
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
@@ -122,6 +131,7 @@ def test_entry_points_need_a_device_without_cuda(tmp_path):
         lambda: Collection.create("c", gen, data, params=params),
         lambda: Collection.restore(str(tmp_path)),
         lambda: restore_collection(str(tmp_path)),
+        lambda: StoreService().create_collection("c", gen, data, params=params),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

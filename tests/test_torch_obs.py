@@ -5,10 +5,12 @@ Its classes that need no service, on the port's package: ``TestTracer``,
 case, ``TestExemplarReservoir`` and ``TestPrometheusHardening``
 (tests/test_obs.py:103-312, :470-579, :744-798), each case as the
 reference has it; and the lifecycle spans of :407 on the port's
-``Collection``.  The service cases (``TestServiceIntegration``,
-``test_obs_on_off_bit_equal``, ``TestExplainService``,
-``test_service_drives_slo_from_step``) wait for the port of
-``store/service.py``.
+``Collection``.  The service cases on the port's ``StoreService`` over
+the reference fixture's index carried across (``from_arrays``):
+``TestServiceIntegration`` (:313), ``test_obs_on_off_bit_equal`` (:431)
+and ``TestExplainDevice`` (:580) on every engine,
+``TestSLOWatch::test_service_drives_slo_from_step`` (:563) and
+``TestExplainService`` (:617).
 """
 
 import json
@@ -19,20 +21,33 @@ import pytest
 torch = pytest.importorskip("torch")
 R = pytest.importorskip("_torch_parity")
 
-from repro_torch.core import DBLSHParams  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    DBLSHParams,
+    Termination,
+    from_arrays,
+    search_batch_fixed,
+)
 from repro_torch.obs import (  # noqa: E402
     BreachEvent,
     ExemplarReservoir,
     MetricsRegistry,
+    Observability,
     QueryExplain,
     SLOWatch,
     Tracer,
     expected_step_pmf,
     get_tracer,
 )
-from repro_torch.obs.trace import TID_LIFECYCLE, TID_RING0  # noqa: E402
-from repro_torch.store import Collection  # noqa: E402
+from repro_torch.obs.trace import TID_LIFECYCLE, TID_RING0, TID_SCHEDULER  # noqa: E402
+from repro_torch.store import (  # noqa: E402
+    Collection,
+    DeadlineExceeded,
+    QuotaExceeded,
+    StoreService,
+)
 from repro_torch.tune import ScheduleTable  # noqa: E402
+
+ENGINES = ("torch", "kernel", "inline")
 
 
 class FakeClock:
@@ -47,6 +62,23 @@ class FakeClock:
     def advance(self, seconds: float) -> float:
         self.now += seconds
         return self.now
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return R.obs_fixture()
+
+
+@pytest.fixture(scope="module")
+def col(setup):
+    """tests/test_obs.py's collection: the reference builds it, the port
+    takes its arrays."""
+    data, _, kb = setup
+    params = R.DBLSHParams.derive(
+        n=256, d=12, c=1.5, w0=3.6, t=12, k=8, inline_vectors=True
+    )
+    _, arrays, ref_params = R.ref_collection_arrays("obscol", kb, data, params=params)
+    return Collection.from_index("obscol", from_arrays(arrays, ref_params, device="cpu"))
 
 
 @pytest.fixture(autouse=True)
@@ -359,6 +391,21 @@ class TestSLOWatch:
         assert watch.maybe_check()          # interval elapsed: breach again
         assert len(watch.events) == 2
 
+    def test_service_drives_slo_from_step(self, setup, col):
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk, cache_size=0, max_wait_ms=1e9)
+        seen = []
+        svc.obs.watch(
+            "obscol", latency_p99_ms=0.5, min_samples=1,
+            check_interval_s=0.0, clock=clk, on_breach=seen.append,
+        )
+        for q in queries[:4]:
+            svc.submit("obscol", q)
+        clk.advance(0.01)  # 10 ms of queue wait: p99 >> the 0.5 ms objective
+        svc.step(force=True)
+        assert seen and seen[0].kind == "latency_p99"
+
 
 class TestExemplarReservoir:
     def test_worst_walks_tail_first(self):
@@ -444,3 +491,300 @@ def test_lifecycle_spans_on_global_tracer():
     assert add.tid == TID_LIFECYCLE
     assert add.args["rows"] == 3 and "version" in add.args
     assert by_name["lifecycle.compact"].args["n_after"] > 0
+
+
+# ------------------------------------------------------- service integration
+EXPECTED_STATS_KEYS = {
+    "queries", "batches", "qps", "latency_ms_p50", "latency_ms_p90",
+    "latency_ms_p99", "latency_ms_mean", "mean_radius_steps",
+    "mean_candidates", "termination_steps_hist", "padding_efficiency",
+    "cache_hits", "cache_hit_rate", "overlap_ratio",
+    "failed", "degraded", "straggler_batches",
+}
+
+
+def _service(col, clk, **kw):
+    kw.setdefault("batch_shapes", (1, 4, 8))
+    kw.setdefault("default_k", 8)
+    kw.setdefault("steps", 4)
+    svc = StoreService(clock=clk, **kw)
+    svc.attach(col)
+    return svc
+
+
+class TestServiceIntegration:
+    def test_stats_keys_and_registry_backing(self, setup, col):
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk)
+        svc.serve("obscol", queries[:4])
+        s = svc.stats("obscol")
+        assert set(s.keys()) == EXPECTED_STATS_KEYS
+        reg = svc.registry
+        assert reg.get("repro_store_queries_served_total").value(
+            collection="obscol"
+        ) == s["queries"] == 4
+        assert reg.get("repro_store_latency_ms").count(
+            collection="obscol"
+        ) == 4
+        # p90/mean agree with exact numpy over the same window
+        lat = reg.get("repro_store_latency_ms")
+        win = np.asarray(
+            lat._series[(("collection", "obscol"),)].window, np.float64
+        )
+        np.testing.assert_allclose(s["latency_ms_p90"], np.percentile(win, 90))
+        np.testing.assert_allclose(s["latency_ms_mean"], win.mean())
+
+    def test_empty_snapshot_is_zero_safe(self, col):
+        svc = _service(col, FakeClock())
+        s = svc.stats("obscol")
+        for key, v in s.items():
+            if key == "termination_steps_hist":
+                assert v == {}
+            else:
+                assert v == 0 or v == 0.0, (key, v)
+        t = StoreService(batch_shapes=(1,), default_k=8)
+        # no tenants served yet -> no entries, and cache stats are 0-safe
+        assert t.cache_stats()["hit_rate"] == 0.0
+
+    def test_gauges_track_queue_and_ring(self, setup, col):
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk, inflight_depth=2, max_wait_ms=1e9)
+        for q in queries[:3]:
+            svc.submit("obscol", q)
+        assert svc.registry.get("repro_store_queue_depth").value() == 3
+        svc.flush()
+        assert svc.registry.get("repro_store_queue_depth").value() == 0
+        assert svc.registry.get("repro_store_inflight_batches").value() == 0
+
+    def test_quota_withdrawal_counters(self, setup, col):
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk)
+        svc.set_quota("t", rate=1.0, burst=2)
+        with pytest.raises(QuotaExceeded):
+            svc.serve("obscol", queries[:4], tenant="t")
+        ts = svc.tenant_stats("t")
+        assert ts["submitted"] == 0          # snapshot: submitted - withdrawn
+        assert ts["rejected"] == 1
+        reg = svc.registry
+        assert reg.get("repro_store_tenant_submitted_total").value(
+            tenant="t"
+        ) == 2                               # the raw counter stays monotonic
+        assert reg.get("repro_store_tenant_withdrawn_total").value(
+            tenant="t"
+        ) == 2
+        assert reg.get("repro_store_quota_rejections_total").value(
+            tenant="t"
+        ) == 1
+
+    def test_cache_metrics_bound(self, setup, col):
+        _, queries, _ = setup
+        svc = _service(col, FakeClock(), cache_size=64)
+        svc.serve("obscol", queries[:2])
+        svc.serve("obscol", queries[:2])
+        reg = svc.registry
+        assert reg.get("repro_store_result_cache_hits_total").value() == 2
+        assert reg.get("repro_store_result_cache_misses_total").value() == 2
+        assert reg.get("repro_store_result_cache_size").value() == 2
+        assert svc.stats("obscol")["cache_hit_rate"] == pytest.approx(0.5)
+
+    def test_request_and_batch_spans(self, setup, col):
+        _, queries, _ = setup
+        clk = FakeClock()
+        obs = Observability(tracer=Tracer(enabled=True, clock=clk))
+        svc = _service(col, clk, obs=obs)
+        svc.serve("obscol", queries[:4])
+        names = {s.name for s in obs.tracer.events}
+        assert {"request.queue_wait", "batch.assemble", "batch.issue",
+                "batch.pending", "batch.complete"} <= names
+        issue = next(s for s in obs.tracer.events if s.name == "batch.issue")
+        assert issue.tid >= TID_RING0
+        assemble = next(
+            s for s in obs.tracer.events if s.name == "batch.assemble"
+        )
+        assert assemble.tid == TID_SCHEDULER
+
+
+# ---------------------------------------------------------------- bit-equality
+@pytest.mark.parametrize("engine", ENGINES)
+def test_obs_on_off_bit_equal(setup, col, engine):
+    """The whole observability stack enabled (tracing, sampling 1.0)
+    must not change a single output bit vs obs-off, per engine."""
+    _, queries, _ = setup
+
+    def run(obs):
+        svc = StoreService(
+            batch_shapes=(1, 4, 8), default_k=8, steps=4, engine=engine,
+            inflight_depth=2, obs=obs,
+        )
+        svc.attach(col)
+        d, i, _ = svc.serve("obscol", queries[:8])
+        return np.asarray(d), np.asarray(i)
+
+    d_off, i_off = run(None)
+    obs = Observability(tracer=Tracer(enabled=True))
+    d_on, i_on = run(obs)
+    assert obs.tracer.events  # it really traced
+    np.testing.assert_array_equal(d_off, d_on)
+    np.testing.assert_array_equal(i_off, i_on)
+
+
+# --------------------------------------------------------- explain / exemplars
+class TestExplainDevice:
+    """Device-side with_explain: the off path must be bit-equal (it is
+    the same search), and the per-step arrays must agree with the
+    with_stats accounting they refine."""
+
+    @pytest.mark.parametrize("engine", ENGINES)
+    def test_explain_off_bit_equal(self, setup, col, engine):
+        _, queries, _ = setup
+        for term in (None, Termination()):
+            kw = dict(k=8, r0=0.5, steps=4, engine=engine, device="cpu",
+                      with_stats=True, termination=term)
+            d0, i0, s0 = search_batch_fixed(col.index, queries[:8], **kw)
+            d1, i1, s1, ex = search_batch_fixed(
+                col.index, queries[:8], with_explain=True, **kw
+            )
+            assert torch.equal(d0, d1) and torch.equal(i0, i1)
+            assert torch.equal(s0["radius_steps"], s1["radius_steps"])
+            assert torch.equal(s0["candidates"], s1["candidates"])
+            # contract: per-step admitted deltas partition the total
+            # verified slots, causes are in vocabulary, the halfwidth
+            # schedule is the geometric ladder
+            slots = ex["step_slots"].numpy()
+            np.testing.assert_array_equal(
+                slots.sum(axis=1), s0["candidates"].numpy()
+            )
+            assert set(ex["term_cause"].tolist()) <= {0, 1, 2}
+            half = ex["step_half"].numpy()
+            assert half.shape == (4,)
+            np.testing.assert_allclose(half[1:] / half[:-1], 1.5, rtol=1e-5)
+
+
+class TestExplainService:
+    def test_ticket_contract_and_render(self, setup, col):
+        """submit(explain=True): the record's accounting matches the
+        ticket's with_stats numbers, the cache read is a bypass, and the
+        rendered text names the termination condition."""
+        _, queries, _ = setup
+        svc = _service(col, FakeClock(), max_wait_ms=1e9)
+        t = svc.submit("obscol", queries[0], explain=True)
+        plain = [svc.submit("obscol", q) for q in queries[1:4]]
+        svc.flush()
+        assert t.done and t.error is None
+        e = t.explain
+        assert e is not None
+        assert all(p.explain is None for p in plain)
+        # device accounting agrees with the ticket
+        assert e.steps_run == t.radius_steps
+        assert e.candidates == t.candidates == sum(e.step_slots)
+        assert e.cum_slots[-1] == t.candidates
+        assert len(e.step_half) == len(e.step_slots) == e.plan_steps == 4
+        assert e.term_cause in (
+            "schedule_exhausted", "c1_budget", "c2_certified"
+        )
+        # provenance: no policy anywhere -> the service's own schedule
+        assert e.plan_source == "default" and e.plan_policy is None
+        assert e.cache_outcome == "bypass" and "obscol@v" in e.cache_key
+        assert e.queue_wait_ms >= 0.0 and e.batch_seq >= 0
+        text = e.render()
+        assert f"uid={t.uid}" in text
+        assert "terminated: " + e.term_cause in text
+        assert "admitted_slots" in text and "cache: bypass" in text
+        json.dumps(e.to_dict())  # artifact shape is JSON-able
+
+    def test_explain_dispatch_bit_equal(self, setup, col):
+        """A fully-explained serve returns bit-identical results to a
+        plain serve of the same queries."""
+        _, queries, _ = setup
+
+        def run(explain):
+            svc = _service(col, FakeClock(), cache_size=0,
+                           inflight_depth=2)
+            d, i, _ = svc.serve("obscol", queries[:6], explain=explain)
+            return np.asarray(d), np.asarray(i)
+
+        d0, i0 = run(False)
+        d1, i1 = run(True)
+        np.testing.assert_array_equal(d0, d1)
+        np.testing.assert_array_equal(i0, i1)
+
+    def test_plan_provenance_names_request_rung(self, setup, col):
+        from repro_torch.tune import FixedSchedule
+
+        _, queries, _ = setup
+        svc = _service(col, FakeClock())
+        t = svc.submit("obscol", queries[0], explain=True,
+                       policy=FixedSchedule(r0=0.5, steps=2))
+        svc.flush()
+        assert t.explain.plan_source == "request"
+        assert "FixedSchedule" in t.explain.plan_policy
+        assert t.explain.plan_steps == 2 and len(t.explain.step_half) == 2
+
+    def test_auto_sampling_stride(self, setup, col):
+        _, queries, _ = setup
+        obs = Observability(explain_sample_rate=0.5)  # stride 2
+        svc = _service(col, FakeClock(), obs=obs, cache_size=0)
+        tickets = [svc.submit("obscol", queries[i % 8]) for i in range(4)]
+        svc.flush()
+        flags = [t.explain is not None for t in tickets]
+        assert flags == [True, False, True, False]
+        # explicit flags override the sampler in both directions
+        assert svc.submit("obscol", queries[0], explain=True).explain
+        assert svc.submit("obscol", queries[0], explain=False).explain is None
+        # default bundle: sampling off, nothing explained implicitly
+        svc2 = _service(col, FakeClock(), cache_size=0)
+        t2 = svc2.submit("obscol", queries[0])
+        svc2.flush()
+        assert t2.explain is None
+
+    def test_tenant_degraded_and_deadline_counters(self, setup, col):
+        """Per-tenant degraded / deadline_exceeded surfaced from labeled
+        registry series."""
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk, max_wait_ms=0.0, inflight_depth=2)
+        # served past its budget: issued at t=0, completed 10ms later
+        t1 = svc.submit("obscol", queries[0], deadline_ms=5.0, tenant="acme")
+        svc.step()
+        clk.advance(0.010)
+        svc.flush()
+        assert t1.done and t1.error is None and t1.degraded
+        # expired while queued: typed deadline failure
+        t2 = svc.submit("obscol", queries[1], deadline_ms=5.0, tenant="acme")
+        clk.advance(0.010)
+        svc.step()
+        assert isinstance(t2.error, DeadlineExceeded) and t2.done
+        ts = svc.tenant_stats("acme")
+        assert ts["degraded"] == 1
+        assert ts["deadline_exceeded"] == 1
+        assert ts["failed"] == 1
+        assert ts["served"] == 1
+
+    def test_breach_event_carries_rendered_exemplar(self, setup, col):
+        """A scripted p99 breach names actual queries — the worst
+        exemplar's rendered explain includes the termination condition
+        and per-step admitted slots."""
+        _, queries, _ = setup
+        clk = FakeClock()
+        svc = _service(col, clk, max_wait_ms=1e9)
+        t = svc.submit("obscol", queries[0], explain=True)
+        clk.advance(0.050)  # 50 ms in queue: the latency tail
+        svc.flush()
+        assert t.done and t.explain is not None
+        watch = svc.obs.watch(
+            "obscol", latency_p99_ms=1.0, min_samples=1, clock=clk,
+        )
+        events = watch.check(clk.now)
+        assert events and events[0].kind in ("latency_p50", "latency_p99")
+        exs = events[0].detail["exemplars"]
+        assert exs, "breach carried no exemplars"
+        best = exs[0]
+        assert best["uid"] == t.uid
+        assert best["explain"]["term_cause"] == t.explain.term_cause
+        assert "terminated: " + t.explain.term_cause in best["rendered"]
+        assert "admitted_slots" in best["rendered"]
+        # the event (exemplars included) survives JSON export
+        json.dumps(events[0].to_dict())

@@ -15,8 +15,12 @@
   manifests carry no JAX ``treedef``, so the reference cannot read them
   (the one-way limit, pinned).
 
-The service cases (deadlines, dispatch failure, brownout, stragglers)
-wait for the port of ``store/service.py``.
+* **The service** — :449-682's ``TestDeadlines``, ``TestDispatchFailure``,
+  ``TestBrownout`` and the service half of ``TestStragglers`` on the
+  port's ``StoreService`` over the reference fixture's index carried
+  across (``from_arrays``), every engine where the reference
+  parametrizes; the sharded straggler case waits for the port of
+  ``store/router.py`` (ROADMAP A15).
 """
 
 import json
@@ -32,8 +36,8 @@ R = pytest.importorskip("_torch_parity")
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.checkpoint import Checkpointer, CorruptSnapshot  # noqa: E402
-from repro_torch.core import DBLSHParams  # noqa: E402
-from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.core import DBLSHParams, from_arrays  # noqa: E402
+from repro_torch.obs import MetricsRegistry, SLOWatch  # noqa: E402
 from repro_torch.resilience import (  # noqa: E402
     SNAPSHOT_CRASH_STAGES,
     BrownoutController,
@@ -42,9 +46,18 @@ from repro_torch.resilience import (  # noqa: E402
     StragglerMonitor,
     faults,
 )
-from repro_torch.store import Collection, restore_collection  # noqa: E402
+from repro_torch.store import (  # noqa: E402
+    BrownoutShed,
+    Collection,
+    DeadlineExceeded,
+    DispatchFailed,
+    StoreService,
+    restore_collection,
+)
+from repro_torch.tune.planner import ScheduleTable  # noqa: E402
 
 CPU = "cpu"
+ENGINES = ("torch", "kernel", "inline")
 
 
 @pytest.fixture(scope="module")
@@ -438,3 +451,332 @@ class TestCrashConsistency:
         # a fresh Checkpointer sweeps the wreckage
         Checkpointer(directory)
         assert not [n for n in os.listdir(directory) if ".tmp" in n]
+
+
+# ---------------------------------------------------------------------------
+# The service: deadlines, dispatch failure, brownout, stragglers
+# ---------------------------------------------------------------------------
+
+
+class FakeClock:
+    """Injectable monotonic clock: time only moves when told to."""
+
+    def __init__(self, start: float = 0.0):
+        self.now = start
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self, seconds: float) -> float:
+        self.now += seconds
+        return self.now
+
+
+@pytest.fixture(scope="module")
+def col():
+    """tests/test_resilience.py's collection: the reference builds it, the
+    port takes its arrays."""
+    data, _, kb = R.resilience_fixture()
+    params = R.DBLSHParams.derive(
+        n=240, d=12, c=1.5, w0=3.6, t=16, k=10, inline_vectors=True
+    )
+    _, arrays, ref_params = R.ref_collection_arrays("res", kb, data, params=params)
+    return Collection.from_index("res", from_arrays(arrays, ref_params, device=CPU))
+
+
+def _service(col, *, engine="torch", depth=2, clock=None, **kw):
+    kw.setdefault("batch_shapes", (1, 4, 8))
+    kw.setdefault("max_wait_ms", 1e9)
+    kw.setdefault("cache_size", 0)
+    svc = StoreService(
+        default_k=10, r0=0.5, steps=6, engine=engine,
+        inflight_depth=depth,
+        **({"clock": clock} if clock is not None else {}),
+        **kw,
+    )
+    svc.attach(col)
+    return svc
+
+
+def _measured_table() -> ScheduleTable:
+    # schedule length j+1 costs 2^j ms; recall climbs toward 1
+    return ScheduleTable(
+        r0=0.5, c=1.5, k=10,
+        recall=(0.55, 0.7, 0.82, 0.9, 0.95, 0.98),
+        cost_slots=(8.0, 16.0, 32.0, 64.0, 128.0, 256.0),
+        cost_ms=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0),
+        n_sample=64,
+    )
+
+
+class TestDeadlines:
+    def test_expired_deadline_fails_typed(self, setup, col):
+        _, queries = setup
+        clk = FakeClock()
+        svc = _service(col, clock=clk)
+        r = svc.submit("res", queries[0], deadline_ms=10.0)
+        clk.advance(0.02)  # 20ms in the queue
+        svc.step(force=True)
+        assert r.done and isinstance(r.error, DeadlineExceeded)
+        assert r.dists is None
+        s = svc.stats("res")
+        assert s["failed"] == 1 and s["queries"] == 0
+        assert svc.tenant_stats("default")["failed"] == 1
+        assert svc.pending() == 0 and svc.in_flight() == 0
+
+    def test_deadline_replans_through_measured_table(self, setup, col):
+        """A ticket whose remaining budget cannot fit the resolved plan
+        is re-planned via LatencyBudget over the measured calibration
+        table — shorter schedule, flagged degraded — instead of either
+        blowing the deadline or failing outright."""
+        _, queries = setup
+        clk = FakeClock()
+        svc = _service(col, clock=clk)
+        old_table = col.calibration
+        col.calibration = _measured_table()
+        try:
+            r = svc.submit("res", queries[0], deadline_ms=10.0)
+            assert r.plan.steps == 6  # service default at submit
+            clk.advance(0.005)  # 5ms gone -> ~5ms budget -> 3 steps (4ms)
+            svc.step(force=True)
+        finally:
+            col.calibration = old_table
+        assert r.done and r.error is None
+        assert r.degraded and r.plan.steps == 3
+        assert r.dists is not None
+        assert svc.stats("res")["degraded"] == 1
+
+    def test_late_completion_flags_degraded(self, setup, col):
+        """No calibration: the plan cannot shrink, but a result landing
+        past its deadline is still flagged, never silently on-time."""
+        _, queries = setup
+        clk = FakeClock()
+        svc = _service(col, clock=clk, depth=1, max_wait_ms=0.0)
+        old_table = col.calibration
+        col.calibration = None
+        try:
+            r = svc.submit("res", queries[0], deadline_ms=10.0)
+            svc.step()          # issued within budget
+            clk.advance(0.05)   # device "takes" 50ms
+            svc.flush()
+        finally:
+            col.calibration = old_table
+        assert r.done and r.error is None and r.degraded
+        assert r.plan.steps == 6  # plan untouched — only the flag
+
+
+class TestDispatchFailure:
+    @pytest.mark.parametrize("engine", ENGINES)
+    def test_transient_raise_retried_bit_equal(self, setup, col, engine):
+        _, queries = setup
+        ref = _service(col, engine=engine).serve("res", queries[:4])
+        svc = _service(col, engine=engine, sleep=lambda s: None)
+        plan = FaultPlan().add("dispatch.raise", count=2, transient=True)
+        with faults.active(plan):
+            d, i, reqs = svc.serve("res", queries[:4])
+        assert len(plan.fired) == 2  # both transient raises were consumed
+        np.testing.assert_array_equal(d, ref[0])
+        np.testing.assert_array_equal(i, ref[1])
+        assert all(r.error is None and not r.degraded for r in reqs)
+
+    def test_backoff_is_capped_exponential(self, setup, col):
+        _, queries = setup
+        slept = []
+        svc = _service(
+            col, sleep=slept.append, retry_limit=3,
+            retry_backoff_ms=4.0, retry_backoff_cap_ms=10.0,
+        )
+        plan = FaultPlan().add("dispatch.raise", count=3, transient=True)
+        with faults.active(plan):
+            svc.serve("res", queries[:1])
+        assert slept == [0.004, 0.008, 0.010]  # 4, 8, min(16, cap=10) ms
+
+    def test_persistent_raise_fails_every_ticket_typed(self, setup, col):
+        _, queries = setup
+        svc = _service(col, sleep=lambda s: None)
+        reqs = [svc.submit("res", q) for q in queries[:4]]
+        plan = FaultPlan().add(
+            "dispatch.raise", count=math.inf, transient=True
+        )
+        with faults.active(plan):
+            svc.flush()
+        assert all(r.done for r in reqs)
+        assert all(isinstance(r.error, DispatchFailed) for r in reqs)
+        assert svc.pending() == 0 and svc.in_flight() == 0
+        assert svc.stats("res")["failed"] == 4
+        # serve() surfaces the typed error to synchronous callers
+        with faults.active(plan.reset()), pytest.raises(DispatchFailed):
+            svc.serve("res", queries[:2])
+
+    def test_nontransient_raise_fails_without_retry(self, setup, col):
+        _, queries = setup
+        slept = []
+        svc = _service(col, sleep=slept.append)
+        plan = FaultPlan().add("dispatch.raise", transient=False)
+        r = svc.submit("res", queries[0])
+        with faults.active(plan):
+            svc.flush()
+        assert isinstance(r.error, DispatchFailed)
+        assert slept == []  # no backoff spent on a non-transient error
+        assert len(plan.fired) == 1
+
+    def test_completion_failure_fails_the_batch_typed(self, setup, col):
+        """A batch whose wait raises after issue (a device fault that
+        surfaces at its event) terminates every ticket with
+        DispatchFailed: nothing is swallowed, no ticket hangs in the
+        ring."""
+        _, queries = setup
+        svc = _service(col, depth=2)
+        reqs = [svc.submit("res", q) for q in queries[:3]]
+        svc._issue("res", svc._drain_wrr("res", 8))  # in the ring, not completed
+        assert svc.in_flight() == 3
+
+        class Broken:
+            def ready(self):
+                return False
+
+            def result(self):
+                raise RuntimeError("an illegal memory access was encountered")
+
+        svc._inflight[-1].pending = Broken()
+        svc.flush()
+        assert all(r.done and isinstance(r.error, DispatchFailed) for r in reqs)
+        assert isinstance(reqs[0].error.__cause__, RuntimeError)
+        assert svc.in_flight() == 0 and svc.stats("res")["failed"] == 3
+
+    @pytest.mark.parametrize("engine", ENGINES)
+    def test_no_faults_bit_equal_pin(self, setup, col, engine):
+        """With faults disabled — no plan installed, or an installed-but-
+        empty plan — the stack serves bit-identically to the plain
+        dispatch (a direct collection search), across the engines."""
+        _, queries = setup
+        direct = col.search(queries[:8], k=10, r0=0.5, steps=6, engine=engine)
+        d0, i0, reqs = _service(col, engine=engine).serve("res", queries[:8])
+        with faults.active(FaultPlan()):  # installed, but scripts nothing
+            d1, i1, _ = _service(col, engine=engine).serve("res", queries[:8])
+        np.testing.assert_array_equal(d0, direct[0].numpy()[:, :10])
+        np.testing.assert_array_equal(i0, direct[1].numpy()[:, :10])
+        np.testing.assert_array_equal(d0, d1)
+        np.testing.assert_array_equal(i0, i1)
+        assert all(
+            r.done and r.error is None and not r.degraded for r in reqs
+        )
+
+
+class TestBrownout:
+    def _svc_with_bc(self, col, clk, **bc_kw):
+        svc = _service(col, clock=clk, latency_window=4)
+        bc = BrownoutController(svc, **bc_kw)
+        assert svc.brownout is bc
+        return svc, bc
+
+    def test_ladder_escalates_and_heals(self, col):
+        clk = FakeClock()
+        svc, bc = self._svc_with_bc(col, clk, heal_after=2)
+        breach = ["b"]  # any non-empty event list
+        bc.observe(breach, clk.advance(1))
+        assert bc.level == 1
+        bc.observe(breach, clk.advance(1))
+        bc.observe(breach, clk.advance(1))
+        bc.observe(breach, clk.advance(1))
+        assert bc.level == 3  # capped at max_level
+        for _ in range(2):
+            bc.observe([], clk.advance(1))
+        assert bc.level == 2  # one rung per heal_after clean checks
+        for _ in range(4):
+            bc.observe([], clk.advance(1))
+        assert bc.level == 0
+        assert svc.registry.get("repro_store_brownout_level").value() == 0
+
+    def test_hold_rate_limits_escalation(self, col):
+        clk = FakeClock()
+        _, bc = self._svc_with_bc(col, clk, hold_s=10.0)
+        bc.observe(["b"], clk.advance(1))
+        bc.observe(["b"], clk.advance(1))  # only 1s after the last rung
+        assert bc.level == 1
+        bc.observe(["b"], clk.advance(20))
+        assert bc.level == 2
+
+    def test_plans_degrade_per_rung(self, setup, col):
+        _, queries = setup
+        clk = FakeClock()
+        svc, bc = self._svc_with_bc(col, clk, step_cap_frac=0.5)
+        r0 = svc.submit("res", queries[0])
+        assert r0.plan.steps == 6 and not r0.degraded
+        bc.observe(["b"], clk.advance(1))           # level 1: cap steps
+        r1 = svc.submit("res", queries[1])
+        assert r1.plan.steps == 3 and r1.degraded
+        bc.observe(["b"], clk.advance(1))           # level 2: fixed floor
+        r2 = svc.submit("res", queries[2])
+        assert r2.plan.steps == 1 and r2.plan.termination is None
+        assert r2.degraded
+        svc.flush()
+        assert all(r.done and r.error is None for r in (r0, r1, r2))
+        assert svc.stats("res")["degraded"] == 2
+
+    def test_shed_by_quota_weight(self, setup, col):
+        _, queries = setup
+        clk = FakeClock()
+        svc, bc = self._svc_with_bc(col, clk)
+        svc.set_quota("gold", weight=5)
+        svc.set_quota("bronze", weight=1)
+        for _ in range(3):
+            bc.observe(["b"], clk.advance(1))
+        assert bc.level == 3
+        with pytest.raises(BrownoutShed):
+            svc.submit("res", queries[0], tenant="bronze")
+        r = svc.submit("res", queries[0], tenant="gold")  # kept, degraded
+        assert r.degraded
+        assert svc.tenant_stats("bronze")["rejected"] == 1
+        # equal weights shed nobody
+        svc.set_quota("gold", weight=1)
+        svc.submit("res", queries[1], tenant="bronze")
+        svc.flush()
+
+    def test_slo_watch_integration_escalates_then_heals(self, setup, col):
+        """End to end: slow served traffic breaches the p99 ceiling via
+        SLOWatch.check -> on_check -> escalate; once the (small) latency
+        window refills with fast queries, clean checks heal the ladder
+        back to healthy."""
+        _, queries = setup
+        clk = FakeClock()
+        svc, bc = self._svc_with_bc(col, clk, heal_after=2)
+        slo = SLOWatch(
+            svc.registry, "res", latency_p99_ms=10.0, min_samples=2,
+            clock=clk,
+        )
+        bc.attach(slo)
+        for q in queries[:4]:
+            svc.submit("res", q)
+        clk.advance(0.05)  # 50ms in queue -> p99 ~50ms
+        svc.flush()
+        assert slo.check(clk()) and bc.level == 1
+        # traffic fast again: the 4-sample window forgets the spike
+        for q in queries[:4]:
+            svc.submit("res", q)
+            svc.step(force=True)
+        for _ in range(2):
+            assert slo.check(clk.advance(1)) == []
+        assert bc.level == 0
+
+
+class TestStragglers:
+    def test_monitor_flags_outlier_without_folding_it(self):
+        mon = StragglerMonitor(alpha=0.5, threshold=2.0, warmup=3)
+        assert not any(mon.record(i, 1.0) for i in range(4))
+        assert mon.record(4, 10.0)
+        assert mon.flagged == [(4, 10.0)]
+        assert mon.ewma == 1.0  # the outlier never polluted the baseline
+
+    def test_service_flags_slow_batch(self, setup, col):
+        """Issue->complete wall time feeds the per-collection monitor: a
+        batch 10x the EWMA baseline lands in straggler_batches."""
+        _, queries = setup
+        clk = FakeClock()
+        svc = _service(col, clock=clk, depth=1, max_wait_ms=0.0)
+        for i in range(5):
+            svc.submit("res", queries[i % len(queries)])
+            svc.step()  # issues batch i; poll() completes batch i-1
+            clk.advance(10.0 if i == 4 else 1.0)
+        svc.flush()
+        assert svc.stats("res")["straggler_batches"] == 1

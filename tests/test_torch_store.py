@@ -18,8 +18,12 @@ tests/test_store.py and to the reference's own collections.
   id maps, re-derived params (an explicit K/L is not kept: the
   reference's behaviour), index arrays, payload and searches equal.
 
-The service, router and sharded cases wait for the ports of
-``store/service.py`` and ``store/router.py``.
+* :43-104, the service's micro-batching equivalence and per-request k,
+  and the service half of :294 (engine resolution request > collection >
+  service, mixed engines split per dispatch), on the port's
+  ``StoreService``.
+
+The router and sharded cases wait for the port of ``store/router.py``.
 """
 
 import dataclasses
@@ -37,6 +41,7 @@ from repro_torch.store import (  # noqa: E402
     Collection,
     CollectionStats,
     CompactionPolicy,
+    StoreService,
     restore_collection,
 )
 from repro_torch.tune import RecallTarget, policy_to_dict  # noqa: E402
@@ -83,6 +88,63 @@ def _agreement(a_d, a_i, b_d, b_i):
     """Mean per-query id-set agreement |A & B| / |B| over finite entries."""
     return float(np.mean([len(a & b) / max(len(b), 1)
                           for a, b in zip(_idsets(a_d, a_i), _idsets(b_d, b_i))]))
+
+
+# ---------------------------------------------------------------------------
+# StoreService: micro-batching equivalence
+# ---------------------------------------------------------------------------
+
+
+def test_service_stream_matches_direct_batch(setup):
+    """A mixed stream of single queries through the admission queue must
+    return results identical to one direct search_batch_fixed call —
+    padding to fixed batch shapes introduces no drift."""
+    data, queries, _ = setup
+    k = 10
+    col = Collection.create("s", _gen(), data, **DERIVE, device=CPU)
+    svc = StoreService(batch_shapes=(1, 4, 16), default_k=k, r0=0.5, steps=8)
+    svc.attach(col)
+
+    # mixed stream: irregular arrival chunks -> batches of size 3, 7, 1,
+    # 16, 5 (each padded to the smallest fitting shape)
+    reqs = []
+    cuts = [3, 10, 11, 27, 32]
+    start = 0
+    for cut in cuts:
+        for q in queries[start:cut]:
+            reqs.append(svc.submit("s", q))
+        svc.step(force=True)
+        start = cut
+    assert svc.pending() == 0
+    assert all(r.done for r in reqs)
+
+    d_direct, i_direct = search_batch_fixed(col.index, queries, k=k, r0=0.5, steps=8,
+                                            device=CPU)
+    np.testing.assert_array_equal(np.stack([r.ids for r in reqs]), i_direct.numpy())
+    np.testing.assert_array_equal(np.stack([r.dists for r in reqs]), d_direct.numpy())
+
+    stats = svc.stats("s")
+    assert stats["queries"] == queries.shape[0]
+    assert stats["batches"] == len(cuts)
+    assert 0 < stats["mean_radius_steps"] <= 8
+    assert stats["mean_candidates"] > 0
+    assert 0 < stats["padding_efficiency"] <= 1.0
+
+
+def test_service_per_request_k_sliced(setup):
+    """Requests with k below the service default get a sliced prefix of
+    the service-k result (one dispatch shape for every k)."""
+    data, queries, _ = setup
+    col = Collection.create("s2", _gen(), data, **DERIVE, device=CPU)
+    svc = StoreService(batch_shapes=(4,), default_k=10, r0=0.5, steps=8)
+    svc.attach(col)
+    r_small = svc.submit("s2", queries[0], k=3)
+    r_full = svc.submit("s2", queries[0], k=10)
+    svc.flush()
+    assert r_small.ids.shape == (3,)
+    np.testing.assert_array_equal(r_small.ids, r_full.ids[:3])
+    with pytest.raises(ValueError):
+        svc.submit("s2", queries[0], k=11)
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +347,29 @@ def test_collection_engine_default_resolution(setup, tmp_path):
     # the first dispatch
     with pytest.raises(ValueError):
         Collection.create("bad2", _gen(), data, **DERIVE, engine="inline", device=CPU)
+
+    # the service resolves request override > collection default > its own
+    svc = StoreService(batch_shapes=(4,), default_k=10, r0=0.5, steps=8,
+                       engine="torch")
+    svc.attach(col)
+    r1 = svc.submit("eng", queries[0])
+    assert r1.engine == "inline"
+    r2 = svc.submit("eng", queries[1], engine="torch")
+    assert r2.engine == "torch"
+    svc.flush()
+    assert r1.done and r2.done
+    svc.attach(col2)
+    assert svc.submit("plain", queries[2]).engine == "torch"
+    svc.flush()
+    # mixed engines in one drained batch split into per-engine dispatches
+    # but still serve every ticket
+    reqs = [svc.submit("eng", q) for q in queries[3:5]]
+    reqs.append(svc.submit("eng", queries[5], engine="torch"))
+    svc.flush()
+    assert all(r.done for r in reqs)
+    assert svc.stats("eng")["batches"] == 4  # each drain split in two
+    with pytest.raises(ValueError):
+        svc.submit("eng", queries[0], engine="vulkan")
 
     step = col.snapshot(str(tmp_path / "eng"))
     col3 = Collection.restore(str(tmp_path / "eng"), step, device=CPU)

@@ -15,9 +15,13 @@
   tests/test_onepass_search.py:91 (rtol 1e-2);
 * ``ScheduleTable.to_dict``/``from_dict`` cross between the packages.
 
+* the service cases of :289-355 (a ``FixedSchedule`` through the whole
+  service bit-equal to the plain dispatch, ``recall_target=`` routed
+  through the planner, the collection's policy over the service's) and
+  :377, ``test_quantized_cache_keys``, on the port's ``StoreService``.
+
 tests/test_torch_termination.py holds the C2 property and the
-Termination cases; the service cases wait for the port of
-``store/service.py``.
+Termination cases.
 """
 
 import math
@@ -29,7 +33,7 @@ torch = pytest.importorskip("torch")
 R = pytest.importorskip("_torch_parity")
 
 from repro_torch.core import ENGINES, Termination, from_arrays, search_batch_fixed  # noqa: E402
-from repro_torch.store import Collection  # noqa: E402
+from repro_torch.store import Collection, QueryResultCache, StoreService  # noqa: E402
 from repro_torch.tune import (  # noqa: E402
     FixedSchedule,
     LatencyBudget,
@@ -240,3 +244,120 @@ def test_search_policy_and_calibration_snapshot_roundtrip(setup, tmp_path):
     assert plan(r.calibration, r.search_policy) == plan(
         table, c3.search_policy
     )
+
+
+# ------------------------------------------------------------ the service
+@pytest.fixture(scope="module")
+def col(setup):
+    data, queries, _, index = setup
+    return Collection.from_index("tune", index, key=np.array([0, 5], np.uint32))
+
+
+def test_fixed_schedule_policy_bit_equal_to_plain_dispatch(setup, col):
+    """FixedSchedule through the whole service stack (submit -> plan ->
+    padded batch dispatch) returns bit-identical results to the plain
+    ``search_batch_fixed``."""
+    data, queries, _, index = setup
+    svc = StoreService(
+        batch_shapes=(1, 4, 16), default_k=K_TEST, r0=0.3, steps=6,
+        cache_size=0, inflight_depth=0,
+    )
+    svc.attach(col)
+    Q = queries[:16]
+    d_plain, i_plain = search_batch_fixed(index, Q, k=K_TEST, r0=0.3, steps=6,
+                                          device=CPU)
+    d_pol, i_pol, reqs = svc.serve("tune", Q, policy=FixedSchedule())
+    np.testing.assert_array_equal(d_plain.numpy(), d_pol)
+    np.testing.assert_array_equal(i_plain.numpy(), i_pol)
+    assert all(r.plan.termination is None for r in reqs)
+    # ...and with no policy anywhere, the resolved plan is the same
+    d_def, i_def, _ = svc.serve("tune", Q)
+    np.testing.assert_array_equal(d_pol, d_def)
+    np.testing.assert_array_equal(i_pol, i_def)
+
+
+def test_service_recall_target_routes_through_planner(setup, col):
+    data, queries, _, index = setup
+    col.calibrate(queries[:16], k=K_TEST, steps_max=8)
+    svc = StoreService(
+        batch_shapes=(1, 4, 16), default_k=K_TEST, r0=0.3, steps=8,
+        cache_size=0,
+    )
+    svc.attach(col)
+    target = min(0.8, max(col.calibration.recall))
+    expected = plan(col.calibration, RecallTarget(target))
+    t = svc.submit("tune", queries[0], recall_target=target)
+    svc.flush()
+    assert t.done
+    assert t.plan == expected
+    assert t.plan.r0 == col.calibration.r0
+    assert 1 <= t.radius_steps <= t.plan.steps
+    st_ = svc.stats("tune")
+    hist = st_["termination_steps_hist"]
+    assert sum(hist.values()) == st_["queries"]
+    assert hist.get(t.radius_steps) >= 1
+    with pytest.raises(ValueError):
+        svc.submit("tune", queries[0], recall_target=0.9, policy=FixedSchedule())
+
+
+def test_collection_policy_beats_service_default(setup):
+    data, queries, _, index = setup
+    c2 = Collection.from_index("c2", index, key=np.array([0, 6], np.uint32))
+    c2.search_policy = FixedSchedule(steps=2)
+    svc = StoreService(
+        batch_shapes=(1, 4), default_k=K_TEST, r0=0.3, steps=8,
+        cache_size=0, default_policy=FixedSchedule(steps=5),
+    )
+    svc.attach(c2)
+    # collection policy wins over the service default...
+    assert svc.resolve_plan("c2").steps == 2
+    # ...and an explicit request policy wins over both
+    assert svc.resolve_plan("c2", FixedSchedule(steps=3)).steps == 3
+    t = svc.submit("c2", queries[0])
+    svc.flush()
+    assert t.plan.steps == 2 and t.radius_steps <= 2
+
+
+def test_quantized_cache_keys(setup):
+    """Opt-in eps-bucketing widens hits to near-duplicate queries; version
+    invalidation semantics are untouched."""
+    data, queries, _, index = setup
+    cache = QueryResultCache(capacity=16, quantize_eps=1e-3)
+    # align the probe query to eps-cell anchors so the ±1e-5 perturbation
+    # below deterministically stays inside the cell
+    q = (np.round(queries[0] / 1e-3) * 1e-3).astype(np.float32)
+    k1 = cache.key("a", 1, q, 8, "torch", 0.5, 6)
+    k2 = cache.key("a", 1, q + 1e-5, 8, "torch", 0.5, 6)
+    assert k1 == k2                       # same eps cell -> same key
+    far = cache.key("a", 1, q + 1.0, 8, "torch", 0.5, 6)
+    assert far != k1
+    assert cache.key("a", 2, q, 8, "torch", 0.5, 6) != k1  # version differs
+    # default (exact) keys still require bit-equality
+    exact = QueryResultCache(capacity=16)
+    assert exact.key("a", 1, q, 8, "torch", 0.5, 6) != exact.key(
+        "a", 1, q + 1e-5, 8, "torch", 0.5, 6
+    )
+    # termination joins the key: a planned adaptive result must never be
+    # served for a fixed-schedule request
+    assert cache.key("a", 1, q, 8, "torch", 0.5, 6, Termination()) != k1
+
+    # service level: near-duplicate hit, then invalidation on mutation
+    col = Collection.create(
+        "qc", torch.Generator().manual_seed(9), data[:512], c=1.5, t=24, k=8, K=6, L=2,
+        device=CPU,
+    )
+    svc = StoreService(
+        batch_shapes=(1, 4), default_k=K_TEST, r0=0.3, steps=4,
+        cache_quantize_eps=1e-3,
+    )
+    svc.attach(col)
+    t0 = svc.submit("qc", q)
+    svc.flush()
+    t1 = svc.submit("qc", q + 1e-5)
+    svc.flush()
+    assert t1.cached
+    np.testing.assert_array_equal(t0.ids, t1.ids)
+    col.add(queries[1][None, :])
+    t2 = svc.submit("qc", q)
+    svc.flush()
+    assert not t2.cached

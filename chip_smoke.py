@@ -156,7 +156,38 @@ Phases, each printing a line (with its seconds) when it passes:
                  with ``DispatchFailed``; with tracing on, a ``batch.issue``
                  span inside the previous batch's ``batch.pending`` window;
                  the card's busy share over one profiled flush at depth 0
-                 and depth 2.
+                 and depth 2;
+15. fleet      — the sharded fleet, ``repro_torch.store.router`` over
+                 ``core.distributed``: 4,000,000 points (d = 64, made like the
+                 main workload's) through ``open_collection`` on
+                 ``make_mesh(4)`` (four shards on the cards there are, four
+                 on one card) with max_points_per_shard = 1,000,000 and the
+                 main index's settings: the sharded placement chosen, every
+                 shard equal to ``build`` of its slice under the one draw of
+                 hash functions; ``search`` at Q = 64 and 1024 ``torch.equal``
+                 to the per-shard ``search_batch_fixed(engine="torch")`` and
+                 the reference's merge rule written out here (lexsort by
+                 distance, then position), stats and explain equal to the
+                 max / sum / first argmax of the shards'; no kernel launched
+                 (the sharded path is pinned to the torch engine, as the
+                 reference pins it to jnp); recall@10 >= 0.5 against brute
+                 force over the 4M points; wall, device ms (profiled) and
+                 idle share, beside one shard's search; ``add`` 10,000 routed
+                 to the least-loaded shard at ids ``target * stride + n_old +
+                 j``, every other live id unchanged; ``remove`` 10,000, none
+                 returned after; ``StoreService`` serving the fleet's 1,024
+                 queries one at a time in phase 14's chunks, depth 0 and 2:
+                 tickets bit-equal to ``ShardedCollection.search`` on their
+                 padded batches, engine torch whatever was asked, no host
+                 sync in the issue stage at depth 2, QPS and p50/p99; then a
+                 small fleet of 4 x 25,000 (where compaction and migration
+                 re-derive K and L): snapshot -> restore bit-equal with a
+                 fresh version, an elastic restore 4 -> 2 -> 4 balanced with
+                 every live point found at 0 by an exact search of itself and
+                 its payload moved with it, compaction after most of one
+                 shard is removed (rebalanced, id map ascending, the retained
+                 calibration re-fit), an add past the stride renumbering once,
+                 an int8 fleet's snapshot re-quantized per shard.
 
 Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
@@ -185,6 +216,8 @@ N, D, N_QUERIES, N_QUERIES_LARGE = 1_000_000, 64, 64, 1024
 K_NN, STEPS, R0 = 10, 8, 0.5
 N_INSERT, N_DELETE = 10_000, 10_000  # the updates phase (10,000 is not a multiple of B)
 N_COMPACT = 100_000  # compact runs on an index of this many points (see phase 8)
+N_FLEET, FLEET_SHARDS = 4_000_000, 4  # phase 15: the sharded fleet
+N_SMALL_SHARD = 25_000  # phase 15's small fleet, a shard's points
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # H100 SXM dense tensor-core rates
@@ -779,6 +812,388 @@ def wall_ms(torch, fn, repeats: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def fleet_profile_ms(torch, fn) -> float:
+    """Device ms of one call of ``fn`` under the profiler: the sum of its
+    device ops, after a few spin kernels that are left out (the first
+    records of a session can go missing, see phase 12)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type.name == "CUDA" and not e.name.startswith("dblsh.")
+               and "spin_kernel" not in e.name) / 1e3
+
+
+def fleet_oracle(torch, np, fleet, Qb, skw: dict):
+    """The fleet's search written out from its parts: each shard's
+    ``search_batch_fixed(engine="torch")`` on the same queries, then the
+    reference's merge rule on the host — local ids below n_local become
+    ``rank * stride + local``, anything else the sentinel ``id_space``;
+    the k smallest distances, ties to the lowest (shard, slot) position
+    (numpy's lexsort); stats as the max / sum over shards, and explain's
+    critical path as numpy's first argmax of the shard steps."""
+    from repro_torch.core import search_batch_fixed
+
+    s = fleet.sharded
+    outs = [search_batch_fixed(sh, Qb, engine="torch", with_explain=True, device=sh.device,
+                               **skw) for sh in s.shards]
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    d = np.stack([host(o[0]) for o in outs], 1)  # (Qn, P, k)
+    i = np.stack([host(o[1]).astype(np.int64) for o in outs], 1)
+    rank = np.arange(len(outs))[None, :, None]
+    gi = np.where(i < s.n_local, i + rank * s.stride, s.id_space)
+    qn = d.shape[0]
+    d, gi = d.reshape(qn, -1), gi.reshape(qn, -1)
+    d = np.where(np.isfinite(d), d, np.inf)
+    pos = np.arange(d.shape[1])
+    k = skw["k"]
+    md, mi = np.empty((qn, k), np.float32), np.empty((qn, k), np.int64)
+    for q in range(qn):
+        order = np.lexsort((pos, d[q]))[:k]
+        md[q], mi[q] = d[q, order], gi[q, order]
+    mi = np.where(np.isfinite(md), mi, s.id_space).astype(np.int32)
+    steps = np.stack([host(o[2]["radius_steps"]) for o in outs])  # (P, Qn)
+    slots = np.stack([host(o[2]["candidates"]) for o in outs])
+    cause = np.stack([host(o[3]["term_cause"]) for o in outs])
+    radius = np.stack([host(o[3]["final_radius"]) for o in outs])
+    crit = np.argmax(steps, axis=0)
+    cols = np.arange(qn)
+    stats = {"radius_steps": steps.max(0), "candidates": slots.sum(0).astype(np.int32)}
+    explain = {"step_half": host(outs[0][3]["step_half"]),
+               "step_slots": np.stack([host(o[3]["step_slots"]) for o in outs]).sum(0)
+               .astype(np.int32),
+               "term_cause": cause[crit, cols], "final_radius": radius[crit, cols],
+               "shard_steps": steps, "shard_slots": slots, "shard_cause": cause}
+    return md, mi, stats, explain
+
+
+def fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, check_tickets,
+                phase_s) -> None:
+    """Phase 15: ``store.router`` and ``core.distributed`` (see the module
+    docstring)."""
+    from repro_torch.core import brute_force, build, sample_projections, search_batch_fixed
+    from repro_torch.core.distributed import id_stride, make_mesh
+    from repro_torch.data import make_clustered, normalize_scale
+    from repro_torch.store import (
+        CompactionPolicy,
+        ShardedCollection,
+        open_collection,
+        restore_collection,
+    )
+
+    fields = ("proj_vecs", "proj_blocks", "ids_blocks", "mbr_lo", "mbr_hi", "data",
+              "vec_blocks", "norm_blocks", "qvec_blocks", "qvec_scale")
+    derive = dict(c=1.5, t=64, k=K_NN, K=10, L=5, inline_vectors=True)
+    skw = dict(k=K_NN, r0=R0, steps=STEPS)
+    mesh = make_mesh(FLEET_SHARDS)
+    cards = len(set(mesh.devices))
+    n_local = N_FLEET // FLEET_SHARDS
+    stride = id_stride(n_local, 2.0)  # the default policy's headroom
+
+    def gid_of(rows, n_loc=n_local, strd=stride):
+        return torch.div(rows, n_loc, rounding_mode="floor") * strd + rows % n_loc
+
+    # the data, made like the main workload's, on a generator of its own
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    pts = make_clustered(fgen, N_FLEET + N_QUERIES_LARGE, D, n_clusters=N_FLEET // 4000,
+                         spread=0.02, device=dev)
+    fdata, fq, _ = normalize_scale(pts[:N_FLEET], pts[N_FLEET:])
+    del pts
+    Q64f, Q1kf = fq[:N_QUERIES].contiguous(), fq.contiguous()
+    row_gid = gid_of(torch.arange(N_FLEET, device=dev))
+    state = fgen.get_state()
+    t0 = time.perf_counter()
+    fleet = open_collection("fleet", fgen, fdata, mesh=mesh,
+                            max_points_per_shard=N_FLEET // FLEET_SHARDS,
+                            payload=row_gid, **derive)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(isinstance(fleet, ShardedCollection) and fleet.sharded.stride == stride
+          and fleet.id_space == FLEET_SHARDS * stride and fleet.device.type == "cuda",
+          "open_collection did not choose the sharded placement")
+    s = fleet.sharded
+    redraw = torch.Generator(device=dev)
+    redraw.set_state(state)
+    pv = sample_projections(redraw, D, s.params.K, s.params.L, dev)
+    for r, sh in enumerate(s.shards):
+        alone = build(fdata[r * n_local:(r + 1) * n_local], s.params, proj_vecs=pv, device=dev)
+        check(sh.device == mesh.devices[r] and alone.params == sh.params
+              and all(torch.equal(getattr(alone, f), getattr(sh, f)) for f in fields),
+              f"fleet: shard {r} differs from build of its slice under the shared hash "
+              "functions")
+        del alone
+    nbytes = sum(sh.memory_bytes() + sh.data.numel() * 4 for sh in s.shards)
+    print(f"[fleet] open_collection of n={N_FLEET} d={D} over {FLEET_SHARDS} shards on "
+          f"{cards} card(s) ({[str(x) for x in mesh.devices]}): sharded, stride {stride}, "
+          f"K={s.params.K} L={s.params.L} B={s.params.block_size} M={s.params.max_blocks}; "
+          f"{nbytes / 1e9:.2f} GB of index and data; built in {build_s:.2f} s; every shard "
+          f"equal to build of its slice under the shared hash functions", flush=True)
+
+    # search: against the per-shard searches and the merge rule written out
+    kernels.reset_launches()
+    for Qb in (Q64f, Q1kf):
+        got = fleet.search(Qb, with_explain=True, **skw)
+        md, mi, stats, explain = fleet_oracle(torch, np, fleet, Qb, skw)
+        check(torch.equal(got[0].cpu(), torch.from_numpy(md))
+              and torch.equal(got[1].cpu(), torch.from_numpy(mi)),
+              f"fleet search at Q={Qb.shape[0]}: ids or distances differ from the merge rule")
+        check(all(torch.equal(got[2][key].cpu(), torch.from_numpy(v)) for key, v in stats.items())
+              and all(torch.equal(got[3][key].cpu(), torch.from_numpy(v))
+                      for key, v in explain.items()),
+              f"fleet search at Q={Qb.shape[0]}: stats or explain differ from max/sum/argmax")
+        plain = fleet.search(Qb, **skw)
+        check(torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1]),
+              "fleet search: with_explain changed the results")
+    torch.cuda.synchronize()
+    launched = {n_: c_ for n_, c_ in kernels.launches.items() if c_}
+    check(not launched, f"fleet: the torch engine launched {launched}")
+    _, gt = brute_force(fdata, Q64f, k=K_NN, device=dev)
+    gt_sets = [set(r) for r in row_gid[gt].cpu().tolist()]
+    d64, i64 = fleet.search(Q64f, **skw)
+    sets = idsets(torch, d64, i64)
+    recall = sum(len(a & b) for a, b in zip(sets, gt_sets)) / (N_QUERIES * K_NN)
+    check(recall >= 0.5, f"fleet: recall@{K_NN} {recall} over {N_FLEET} points")
+    times = {}
+    for Qb in (Q64f, Q1kf):
+        qn = Qb.shape[0]
+        wall = wall_ms(torch, lambda: fleet.search(Qb, **skw), repeats=5)
+        one = wall_ms(torch, lambda: search_batch_fixed(s.shards[0], Qb, engine="torch",
+                                                        device=dev, **skw), repeats=5)
+        dev_ms = fleet_profile_ms(torch, lambda: fleet.search(Qb, **skw))
+        check(dev_ms > 0, f"fleet: no device time at Q={qn}")
+        times[f"Q={qn}"] = {"wall_ms": round(wall, 3), "device_ms": round(dev_ms, 3),
+                            "idle": round(1 - dev_ms / wall, 3),
+                            "qps": round(qn / wall * 1e3, 1),
+                            "one_shard_wall_ms": round(one, 3)}
+    print(f"[fleet] search at Q={N_QUERIES} and {N_QUERIES_LARGE}: torch.equal to the "
+          f"per-shard search_batch_fixed(engine='torch') + the merge rule, stats and "
+          f"explain equal to max/sum/first-argmax; zero kernel launches (the sharded "
+          f"path is pinned to the torch engine); recall@{K_NN} {recall:.4f} against brute "
+          f"force over {N_FLEET} points; {card}: {json.dumps(times)}", flush=True)
+
+    # add 10,000 (to the least-loaded shard) and remove 10,000
+    ugen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    near_of = torch.randint(0, N_FLEET, (N_INSERT,), generator=ugen, device=dev)
+    fextra = fdata[near_of] + torch.randn((N_INSERT, D), generator=ugen, device=dev) * (
+        0.5 / D ** 0.5)
+    counts0 = fleet.shard_counts()
+    target, n_old = int(np.argmin(counts0)), s.n_local
+    want_ids = target * stride + n_old + np.arange(N_INSERT)
+    before = [sh.ids_blocks.clone() for sh in s.shards]
+    t0 = time.perf_counter()
+    new_ids = fleet.add(fextra, payload=torch.from_numpy(want_ids).to(dev))
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    s = fleet.sharded
+    check(np.array_equal(new_ids, want_ids) and fleet.stats.compactions == 0
+          and s.stride == stride
+          and np.array_equal(fleet.shard_counts() - counts0,
+                             np.eye(FLEET_SHARDS, dtype=np.int64)[target] * N_INSERT),
+          f"fleet add: ids {new_ids[:3]}... or counts {fleet.shard_counts()} not routed to "
+          f"shard {target}")
+    n_new = s.n_local
+    for r, (old, sh) in enumerate(zip(before, s.shards)):
+        moved = torch.where(old >= n_old, n_new, old)
+        check(torch.equal(sh.ids_blocks[:, :old.shape[1]], moved),
+              f"fleet add: a live id of shard {r} changed")
+    del before
+    d, i = fleet.search(fextra[:16], k=1, r0=R0, steps=STEPS, exact=True)
+    check(bool((d[:, 0] == 0).all()) and np.array_equal(i[:, 0].cpu().numpy(), want_ids[:16])
+          and torch.equal(fleet.get_payload(i[:, 0]).cpu(), torch.from_numpy(want_ids[:16])),
+          "fleet add: an inserted point is not found at its id")
+    nn = []
+    for c in range(0, N_QUERIES_LARGE, N_QUERIES):
+        nn.append(brute_force(fdata, Q1kf[c:c + N_QUERIES], k=1, device=dev)[1][:, 0])
+    near = torch.unique(row_gid[torch.cat(nn)])
+    pool = torch.cat([row_gid[torch.randperm(N_FLEET, generator=ugen, device=dev)[:N_DELETE]],
+                      torch.from_numpy(want_ids[::7]).to(dev)])
+    pool = pool[~torch.isin(pool, near)]
+    victims = torch.cat([near, pool[:N_DELETE - near.numel()]]).to(torch.int32)
+    t0 = time.perf_counter()
+    id_map = fleet.remove(victims)
+    torch.cuda.synchronize()
+    remove_s = time.perf_counter() - t0
+    check(id_map is None and fleet.live_count() == N_FLEET + N_INSERT - N_DELETE,
+          "fleet remove: wrong live count, or a compaction")
+    victim_set = set(victims.cpu().tolist())
+    for Qb in (Q64f, Q1kf):
+        dd, ii = fleet.search(Qb, **skw)
+        check(not victim_set & set().union(*idsets(torch, dd, ii)),
+              "fleet remove: a removed id returned")
+    print(f"[fleet] add {N_INSERT} in {add_s:.3f} s to the least-loaded shard {target}, ids "
+          f"target*stride + {n_old} + j, every other live id unchanged; remove {N_DELETE} "
+          f"(the {N_QUERIES_LARGE} queries' nearest neighbours among them) in {remove_s:.3f} s, "
+          f"no removed "
+          f"id returned", flush=True)
+
+    # the service: phase 14's 1,024 single queries through StoreService
+    rows_h = Q1kf.cpu().numpy()
+    runs, svc_numbers = {}, {}
+    for depth in (0, 2):
+        svc = service(col=fleet, engine="kernel", inflight_depth=depth, max_wait_ms=0.0,
+                      cache_size=2 * N_QUERIES_LARGE)
+        if depth:
+            strict_issue(svc)
+        kernels.reset_launches()
+        tickets, _ = drive(svc, rows_h)
+        torch.cuda.synchronize()
+        errors = [t.error for t in tickets if t.error is not None]
+        check(not errors, f"fleet service (depth {depth}): {len(errors)} tickets failed, "
+              f"the first: {errors[:1]!r}"
+              + (f" (cause {errors[0].__cause__!r})" if errors else ""))
+        check(all(t.done and not t.cached and t.engine == "torch" for t in tickets)
+              and all(e == "torch" for _, _, e in svc.batch_log),
+              f"fleet service (depth {depth}): a ticket not done, cached, or not on torch")
+        check(not any(kernels.launches.values()), "fleet service: a kernel launched")
+        shapes = check_tickets(svc, tickets, f"fleet, depth {depth}")
+        check(shapes == set(SVC_SHAPES), f"fleet service: shapes {shapes}")
+        runs[depth] = tickets
+        svc_numbers[f"depth{depth}"] = {"batches": len(svc.batch_log),
+                                        "overlap_ratio": svc.stats("fleet")["overlap_ratio"]}
+    check(all(np.array_equal(x.dists, y.dists) and np.array_equal(x.ids, y.ids)
+              for x, y in zip(runs[0], runs[2])), "fleet service: depth 0 and 2 differ")
+    svc = service(col=fleet, engine="inline", cache_size=0)
+    asked = svc.submit("fleet", rows_h[0], engine="kernel")
+    svc.flush()
+    check(asked.engine == "torch" and asked.error is None,
+          f"fleet service: a request asking for kernel ran on {asked.engine}")
+    timing = {}
+    drive(service(col=fleet, max_wait_ms=0.0, cache_size=0), rows_h)
+    for depth in SVC_TURNS:
+        svc = service(col=fleet, inflight_depth=depth, max_wait_ms=0.0, cache_size=0)
+        _, wall_s = drive(svc, rows_h)
+        st_ = svc.stats("fleet")
+        row = timing.setdefault(f"depth{depth}", {"qps": [], "p50_ms": [], "p99_ms": [],
+                                                  "wall_s": []})
+        for key, v in (("qps", st_["qps"]), ("p50_ms", st_["latency_ms_p50"]),
+                       ("p99_ms", st_["latency_ms_p99"]), ("wall_s", wall_s)):
+            row[key].append(v)
+    medians = {name: {key: statistics.median(v) for key, v in row.items()}
+               for name, row in timing.items()}
+    print(f"[fleet] service: {N_QUERIES_LARGE} single queries (chunks {SVC_CHUNKS}) on the "
+          f"fleet, tickets bit-equal to ShardedCollection.search on their padded batches "
+          f"(all four shapes), engine torch whatever was asked, depth 0 == depth 2, no host "
+          f"sync in the issue stage at depth 2: {json.dumps(svc_numbers)}; {card}: QPS and "
+          f"ticket latency, medians of passes in turns {SVC_TURNS}: {json.dumps(medians)}; "
+          f"readings {json.dumps(timing)}", flush=True)
+    del fleet, s, svc
+
+    # a small fleet, 4 x 25,000: snapshot, elastic restore, compaction,
+    # the stride's renumbering, int8 (K and L are re-derived there: at 1M a
+    # shard would need K = 3572, see phase 8)
+    n_small = FLEET_SHARDS * N_SMALL_SHARD
+    sdata = fdata[:n_small].contiguous()
+    sgid = gid_of(torch.arange(n_small, device=dev), N_SMALL_SHARD, id_stride(N_SMALL_SHARD))
+    small = ShardedCollection.create("small", torch.Generator(device=dev).manual_seed(SEED + 17),
+                                     sdata, mesh, payload=sgid,
+                                     policy=CompactionPolicy(auto=False), **derive)
+    sextra = fextra[:1000]
+    tgt = int(np.argmin(small.shard_counts()))
+    pred = torch.arange(1000, device=dev) + tgt * small.sharded.stride + N_SMALL_SHARD
+    check(np.array_equal(small.add(sextra, payload=pred), pred.cpu().numpy()),
+          "small fleet: add returned other ids")
+    small.remove(sgid[::9].to(torch.int32))
+    snap_root = ROOT / "build"
+    snap_root.mkdir(exist_ok=True)
+    snap_dir = Path(tempfile.mkdtemp(prefix="fleet_snapshot_", dir=snap_root))
+    small_numbers = {}
+    try:
+        before = small.search(Q1kf, with_stats=True, **skw)
+        t0 = time.perf_counter()
+        small.snapshot(str(snap_dir / "small"))
+        snap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_collection(str(snap_dir / "small"), mesh=mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        after = back.search(Q1kf, with_stats=True, **skw)
+        check(isinstance(back, ShardedCollection) and back.version > small.version
+              and bit_equal(torch, before, after)
+              and all(torch.equal(before[2][k_], after[2][k_]) for k_ in before[2])
+              and torch.equal(back.payload, small.payload),
+              "fleet snapshot: the restored fleet differs")
+        # elastic: 4 -> 2 -> 4, every live point found at its new id
+        _, live_gids = small._live_rows_and_ids()
+        g = torch.from_numpy(live_gids).to(dev)
+        ss = small.sharded
+        live_pts = torch.cat([ss.shards[r].data[g[g // ss.stride == r] % ss.stride]
+                              for r in range(FLEET_SHARDS)])
+        mesh2 = make_mesh(2)
+        two = restore_collection(str(snap_dir / "small"), mesh=mesh2)
+        two.snapshot(str(snap_dir / "two"))
+        four = restore_collection(str(snap_dir / "two"), mesh=mesh)
+        for label, col in (("2 shards", two), ("4 shards", four)):
+            counts = col.shard_counts()
+            check(counts.sum() == live_gids.size and counts.max() - counts.min() <= 1,
+                  f"elastic restore ({label}): counts {counts}")
+            # in chunks: the re-derived K (~2,200 at 25,000 a shard) makes
+            # the selection's (Q, nb, K) terms ~3.5 MB a query
+            for c in range(0, live_pts.shape[0], 1024):
+                dd, ii = col.search(live_pts[c:c + 1024], k=1, r0=R0, steps=STEPS, exact=True)
+                check(bool((dd[:, 0] == 0).all())
+                      and torch.equal(col.get_payload(ii[:, 0]), g[c:c + 1024].long()),
+                      f"elastic restore ({label}): a live point not found at 0, or its "
+                      "payload did not move with it")
+        del two, four
+        # compact after most of one shard is removed: rebalanced, the
+        # retained calibration re-fit
+        small.remove(sgid[N_SMALL_SHARD:N_SMALL_SHARD + 4 * N_SMALL_SHARD // 5]
+                     .to(torch.int32))
+        held = Q1kf[-N_QUERIES:]
+        small.calibrate(held, k=K_NN, steps_max=STEPS, retain=True)
+        old_table = small.calibration
+        t0 = time.perf_counter()
+        id_map = small.compact()
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        counts = small.shard_counts()
+        newv = id_map[id_map >= 0]
+        fresh = small._calibrate_impl(held, k=K_NN, r0=None, steps_max=STEPS, engine=None,
+                                      measure_ms=False)
+        check(counts.max() - counts.min() <= 1 and np.all(newv[1:] > newv[:-1])
+              and small.calibration is not old_table
+              and (small.calibration.r0, small.calibration.recall,
+                   small.calibration.cost_slots) == (fresh.r0, fresh.recall, fresh.cost_slots),
+              f"fleet compact: counts {counts}, or the id map, or the re-fit")
+        # an add past the stride renumbers once
+        room = small.sharded.stride - small.sharded.n_local
+        over = torch.cat([sextra] * (room // sextra.shape[0] + 2))[:room + 1]
+        small.add(over, payload=torch.zeros(over.shape[0], dtype=small.payload.dtype,
+                                            device=dev))
+        check(small.stats.compactions == 2 and small.sharded.stride >= small.sharded.n_local,
+              "fleet: an add past the stride did not renumber once")
+        # int8: the snapshot re-quantizes per shard
+        q8 = ShardedCollection.create("small8", torch.Generator(device=dev).manual_seed(SEED),
+                                      sdata, mesh, quant_dtype="int8", **derive)
+        q8.snapshot(str(snap_dir / "q8"))
+        q8b = restore_collection(str(snap_dir / "q8"), mesh=mesh)
+        check(all(torch.equal(a.qvec_blocks, b.qvec_blocks) and torch.equal(a.qvec_scale,
+                                                                           b.qvec_scale)
+                  for a, b in zip(q8.sharded.shards, q8b.sharded.shards))
+              and bit_equal(torch, q8.search(Q1kf, dtype="int8", **skw),
+                            q8b.search(Q1kf, dtype="int8", **skw)),
+              "fleet int8 snapshot: re-quantized blocks or int8 searches differ")
+        small_numbers = {"snapshot_s": round(snap_s, 3), "restore_s": round(restore_s, 3),
+                         "compact_s": round(compact_s, 3), "counts_after_compact":
+                         counts.tolist(), "K_L_after_compact": [small.sharded.params.K,
+                                                                small.sharded.params.L]}
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    print(f"[fleet] small fleet ({FLEET_SHARDS} x {N_SMALL_SHARD}): snapshot -> restore on "
+          f"an equal mesh bit-equal with a fresh version; elastic 4 -> 2 -> 4 balanced, every "
+          f"live point found at its new id with its payload; compact after most of shard 1 "
+          f"removed rebalances, id map ascending, calibration re-fit; an add past the stride "
+          f"renumbers once; int8 snapshot re-quantized per shard, searches equal: "
+          f"{json.dumps(small_numbers)} ({phase_s():.1f} s)", flush=True)
 
 
 def main() -> int:
@@ -2031,11 +2446,12 @@ def main() -> int:
     fused_of = {"inline": "fused_window_search", "kernel": "fused_cand_search"}
     svc_kw = dict(batch_shapes=SVC_SHAPES, default_k=K_NN, r0=R0, steps=STEPS)
 
-    def service(**kw):
-        """A StoreService over svc_col whose issued batches are logged:
-        (uids, shape, engine) per batch, in issue order."""
+    def service(col=None, **kw):
+        """A StoreService over ``col`` (svc_col when None) whose issued
+        batches are logged: (uids, shape, engine) per batch, in issue
+        order."""
         svc = StoreService(**{**svc_kw, **kw})
-        svc.attach(svc_col)
+        svc.attach(svc_col if col is None else col)
         svc.batch_log = []
         issue = svc._issue
 
@@ -2075,21 +2491,22 @@ def main() -> int:
         what is queued, so the chunks become batches of shapes 64, 16, 4
         and 1, and a chunk of 128 two batches issued in one step), then
         flush.  Returns the tickets and the wall seconds."""
+        name = next(iter(svc.collections))
         tickets, start, t0 = [], 0, time.perf_counter()
         for size in itertools.cycle(SVC_CHUNKS):
             if start >= len(rows):
                 break
             for q in rows[start:start + size]:
-                tickets.append(svc.submit("svc", q, tenant=tenant))
+                tickets.append(svc.submit(name, q, tenant=tenant))
             svc.step()
             start += size
         svc.flush()
         return tickets, time.perf_counter() - t0
 
     def check_tickets(svc, tickets, label):
-        """Every ticket against ``Collection.search`` on its own padded
-        batch (shape, rows and engine as logged), bit for bit, stats and
-        payload included; returns the shapes issued."""
+        """Every ticket against the attached collection's ``search`` on its
+        own padded batch (shape, rows and engine as logged), bit for bit,
+        stats and payload included; returns the shapes issued."""
         by_uid = {t.uid: t for t in tickets}
         shapes = set()
         for uids, shape, engine in svc.batch_log:
@@ -2098,9 +2515,10 @@ def main() -> int:
                 continue
             Qpad = np.zeros((shape, D), np.float32)
             Qpad[:len(reqs)] = np.stack([r.query for r in reqs])
-            dd, ii, st = svc_col.search(torch.from_numpy(Qpad).to(dev), k=K_NN, r0=R0,
-                                        steps=STEPS, engine=engine, with_stats=True,
-                                        rows=len(reqs))
+            col = next(iter(svc.collections.values()))
+            dd, ii, st = col.search(torch.from_numpy(Qpad).to(dev), k=K_NN, r0=R0,
+                                    steps=STEPS, engine=engine, with_stats=True,
+                                    rows=len(reqs))
             m = len(reqs)
             check(np.array_equal(np.stack([r.dists for r in reqs]), dd[:m].cpu().numpy())
                   and np.array_equal(np.stack([r.ids for r in reqs]), ii[:m].cpu().numpy())
@@ -2308,9 +2726,13 @@ def main() -> int:
                                  "batches": len(svc.batch_log)}
     print(f"[service] trace: {len(inside)} batch.issue spans inside the previous batch's "
           f"pending window (depth 2); {card}: device busy share over one profiled flush "
-          f"of 256 queries (inline) {json.dumps(busy)} ({phase_s():.1f} s); the whole "
-          f"run took {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"of 256 queries (inline) {json.dumps(busy)} ({phase_s():.1f} s)", flush=True)
     del svc_col
+
+    # ------------------------------------------------ 15. the sharded fleet
+    fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, check_tickets,
+                phase_s)
+    print(f"[fleet] the whole run took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -43,7 +43,9 @@ and re-raises the writer's exception (``wait(reraise=False)`` drains
 without raising, for recovery paths).
 
 Restore returns host (numpy) arrays; the caller places them on its
-device.  Placement by sharding is not ported yet.
+device.  A sharded collection splits them over its shards itself
+(``store.router.ShardedCollection.restore``), so there is no
+``shardings=``.
 
 Fault sites (active only under an installed ``resilience.faults`` plan):
 ``snapshot.write.torn`` truncates a leaf file mid-write and simulates a

@@ -31,8 +31,13 @@ Module map (and how it relates to the rest of the package):
   on the host.  Collection mutations bump the version, so invalidation is
   by construction; see DESIGN.md §6 for the contract.
 
-The sharded placement (``ShardedCollection``, ``open_collection``) is
-not ported yet.
+* ``router``      — :class:`ShardedCollection`: the same lifecycle over
+  ``core.distributed`` — a fleet of per-shard indices on a single-
+  controller mesh (``core.distributed.make_mesh``; shards may share a
+  card), queries replicated and merged on the mesh's first device,
+  strided global ids, least-loaded inserts, rebalancing compaction and
+  elastic restore; :func:`open_collection` picks the placement from the
+  data's size (``max_points_per_shard``).
 
 Relation to neighbors: ``repro_torch.tune`` supplies query *planning*:
 a Collection carries a ``search_policy`` and a persisted calibration
@@ -57,6 +62,12 @@ Typical use::
     col.add(more_points)               # new version: cached rows stop matching
     col.snapshot("snapshots/docs")
     col2 = restore_collection("snapshots/docs")
+
+    from repro_torch.core.distributed import make_mesh
+    fleet = open_collection("big", gen, big_data, mesh=make_mesh(4),
+                            max_points_per_shard=1_000_000, c=1.5, k=10)
+    fleet.snapshot("snapshots/big")
+    fleet2 = restore_collection("snapshots/big", mesh=make_mesh(2))  # elastic
 """
 
 from .cache import CachedResult, QueryResultCache
@@ -68,6 +79,7 @@ from .lifecycle import (
     restore_collection,
     version_clock,
 )
+from .router import ShardedCollection, open_collection
 from .service import (
     BrownoutShed,
     DeadlineExceeded,
@@ -90,8 +102,10 @@ __all__ = [
     "QueryRequest",
     "QueryResultCache",
     "QuotaExceeded",
+    "ShardedCollection",
     "StoreService",
     "TenantQuota",
+    "open_collection",
     "restore_collection",
     "version_clock",
 ]

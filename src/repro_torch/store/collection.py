@@ -242,10 +242,10 @@ class Collection(CollectionLifecycle):
         device = resolve_device(device)
         tree, meta = Checkpointer(directory).restore(step, keys=_snapshot_keys)
         if meta.get("placement", "local") != "local":
-            raise NotImplementedError(
-                f"snapshot at {directory!r} is {meta['placement']!r}: the "
-                "sharded placement is not ported to repro_torch yet "
-                "(ROADMAP item A15)"
+            raise ValueError(
+                f"snapshot at {directory!r} is {meta['placement']!r}: "
+                "restore it with ShardedCollection.restore(mesh=...) or "
+                "repro_torch.store.restore_collection(..., mesh=...)"
             )
         index = from_arrays(
             {f: tree[f] for f in _INDEX_ARRAY_FIELDS if f in tree},

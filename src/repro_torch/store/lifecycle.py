@@ -39,8 +39,8 @@ Placements supply only the index mechanics, via the ``_insert`` /
 ``_snapshot_arrays`` / ``_snapshot_meta`` hooks plus the ``n`` / ``d`` /
 ``live_count`` / ``search`` surface.  :func:`restore_collection`
 dispatches a snapshot directory to its placement from the manifest
-alone.  The sharded placement is not ported yet: a sharded snapshot
-raises.
+alone: a local one to :class:`~repro_torch.store.collection.Collection`,
+a sharded one to :class:`~repro_torch.store.router.ShardedCollection`.
 """
 
 from __future__ import annotations
@@ -521,14 +521,15 @@ class CollectionLifecycle:
 
 def restore_collection(directory: str, step: int | None = None, *, mesh=None,
                        device=None):
-    """Restore whichever placement a snapshot holds, on ``device`` (the
-    CUDA device when None).
+    """Restore whichever placement a snapshot holds.
 
     Reads the manifest alone (no array loads) to dispatch: local
-    snapshots return a :class:`~repro_torch.store.collection.Collection`.
-    The sharded placement is not ported yet (ROADMAP item A15): a sharded
-    snapshot raises ``NotImplementedError``, with or without ``mesh=``,
-    and is never restored locally in its place.
+    snapshots return a :class:`~repro_torch.store.collection.Collection`
+    on ``device`` (None: the mesh's first device when a mesh is given,
+    else the CUDA device); sharded ones need ``mesh=`` and return a
+    :class:`~repro_torch.store.router.ShardedCollection` placed on it —
+    on any shard count: a mesh differing from the snapshot's triggers the
+    elastic migration path (see ``ShardedCollection.restore``).
 
     Crash safety: with ``step=None`` this walks the directory's steps
     newest-first (the ``LATEST`` designee first) and falls back past any
@@ -538,6 +539,8 @@ def restore_collection(directory: str, step: int | None = None, *, mesh=None,
     strict: its corruption propagates."""
     from ..device import resolve_device
 
+    if device is None and mesh is not None:
+        device = mesh.merge_device
     device = resolve_device(device)
     ck = Checkpointer(directory)
     candidates = ck._candidate_steps(step)
@@ -548,12 +551,14 @@ def restore_collection(directory: str, step: int | None = None, *, mesh=None,
         try:
             meta, s = ck.read_meta(s)
             if meta.get("placement", "local") == "sharded":
-                raise NotImplementedError(
-                    f"snapshot at {directory!r} is sharded "
-                    f"({meta.get('shards')} shards): the sharded placement is "
-                    "not ported to repro_torch yet (ROADMAP item A15)"
-                    + ("" if mesh is None else "; mesh= cannot place it")
-                )
+                if mesh is None:
+                    raise ValueError(
+                        f"snapshot at {directory!r} is sharded "
+                        f"({meta.get('shards')} shards): pass mesh= to place it"
+                    )
+                from .router import ShardedCollection
+
+                return ShardedCollection.restore(directory, mesh=mesh, step=s)
             from .collection import Collection
 
             return Collection.restore(directory, s, device=device)

@@ -19,6 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 # one intra-op thread for the port's CPU ops: the test runner starts
 # several workers on a few cores, and torch's per-op thread pools then
@@ -109,6 +110,12 @@ __all__ = [
     "scheduler_fixture",
     "scheduler_property_points",
     "store_fixture",
+    "sharded_reference",
+    "sharded_lifecycle_fixture",
+    "ref_sharded_collection",
+    "HostWaits",
+    "SHARDS",
+    "SHARDED_KW",
     "ref_collection_arrays",
 ]
 
@@ -472,3 +479,187 @@ def ref_exports(module: str) -> list[str]:
     import importlib
 
     return list(importlib.import_module("repro" + (f".{module}" if module else "")).__all__)
+
+
+# ---------------------------------------------------------------------------
+# The reference's sharded fleet at P = 4, in a subprocess with four forced
+# host devices (the test process keeps its one device)
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARDED_KW = dict(c=1.5, w0=3.6, t=16, k=10, K=6, L=3, block_size=32, inline_vectors=True)
+
+_SHARDED_SCRIPT = r'''
+import json, sys
+from pathlib import Path
+import numpy as np
+import jax, jax.numpy as jnp
+import _torch_parity as R
+from repro.core import DBLSHParams, Termination
+from repro.core.distributed import (build_sharded, compact_sharded, delete_sharded,
+                                    id_stride, insert_sharded, search_sharded,
+                                    shard_live_counts)
+from repro.store import CompactionPolicy, ShardedCollection
+
+out = Path(sys.argv[1])
+P, KW = R.SHARDS, R.SHARDED_KW
+assert len(jax.devices()) == P, jax.devices()
+mesh = jax.make_mesh((P,), ("data",))
+rng = np.random.default_rng(11)
+n, d = 4096, 16
+data = rng.integers(-3, 4, (n, d)).astype(np.float32)
+extra = rng.integers(-3, 4, (48, d)).astype(np.float32)
+queries = rng.integers(-3, 4, (24, d)).astype(np.float32)
+tied = np.tile(rng.integers(-3, 4, (256, d)).astype(np.float32), (P, 1))
+res = {"data": data, "extra": extra, "queries": queries, "tied": tied}
+meta = {}
+
+def arrays(tag, s):
+    for f in R.INDEX_FIELDS:
+        res[f"{tag}/{f}"] = np.asarray(getattr(s.index, f))
+    meta[tag] = dict(params=R.index_params(s.index), n_total=s.n_total,
+                     n_local=s.n_local, stride=s.stride)
+
+SEARCHES = {
+    "plain": dict(r0=1.0, steps=6),
+    "stats": dict(r0=1.0, steps=6, with_stats=True),
+    "explain": dict(r0=1.0, steps=6, with_explain=True),
+    "exact": dict(r0=1.0, steps=6, exact=True, with_stats=True),
+    "term": dict(r0=1.0, steps=8, termination=Termination(), with_explain=True),
+    "term_c1": dict(r0=1.0, steps=8, with_explain=True,
+                    termination=Termination(use_c2=False, c1_budget=96)),
+    "unfilled": dict(r0=1.0, steps=4, with_stats=True),
+}
+
+def searches(tag, s, which=SEARCHES):
+    for name, kw in which.items():
+        o = search_sharded(s, jnp.asarray(queries), k=10, mesh=mesh, **kw)
+        res[f"{tag}/{name}/d"], res[f"{tag}/{name}/i"] = np.asarray(o[0]), np.asarray(o[1])
+        for extra_out in o[2:]:
+            for key, v in extra_out.items():
+                res[f"{tag}/{name}/{key}"] = np.asarray(v)
+
+with R.integer_projections(seed=4) as proj:
+    params = DBLSHParams.derive(n=n // P, d=d, **KW)
+    s = build_sharded(R.key(0), jnp.asarray(data), params, mesh,
+                      stride=id_stride(n // P, 1.25))
+    res["build/proj"] = proj.drawn[-1]
+    arrays("build", s)
+    searches("build", s)
+    # every shard holds the same points: each distance ties across shards
+    st = build_sharded(R.key(1), jnp.asarray(tied), params, mesh)
+    res["tied/proj"] = proj.drawn[-1]
+    arrays("tied", st)
+    searches("tied", st, {"stats": SEARCHES["stats"], "exact": SEARCHES["exact"]})
+    # inserts on shard 2, then deletes across shards, headroom and sentinels
+    s2 = insert_sharded(s, jnp.asarray(extra), 2, mesh=mesh)
+    gids = np.concatenate([np.arange(0, 3000, 37), 2 * 1280 + 1024 + np.arange(0, 48, 5),
+                           [1100, 4 * 1280]]).astype(np.int32)
+    res["delete/gids"] = gids
+    s3 = delete_sharded(s2, jnp.asarray(gids), mesh=mesh)
+    arrays("insert", s2)
+    arrays("delete", s3)
+    res["delete/counts"] = np.asarray(shard_live_counts(s3, mesh=mesh))
+    searches("delete", s3, {k_: SEARCHES[k_] for k_ in ("stats", "exact", "explain")})
+    s4, id_map = compact_sharded(s3, R.key(5), mesh, headroom=1.25)
+    res["compact/proj"] = proj.drawn[-1]
+    res["compact/id_map"] = np.asarray(id_map)
+    arrays("compact", s4)
+    searches("compact", s4, {k_: SEARCHES[k_] for k_ in ("stats", "exact")})
+    # a collection's snapshot, after updates, and an int8 one
+    for tag, ckw in (("col", {}), ("col8", {"quant_dtype": "int8"})):
+        col = ShardedCollection.create(
+            tag, R.key(9), data, mesh, payload=np.arange(n) * 3,
+            policy=CompactionPolicy(auto=False), **KW, **ckw)
+        col.add(extra[:20], payload=np.arange(20) + 50_000)
+        col.remove(np.arange(0, 600, 7).astype(np.int32))
+        col.snapshot(str(out / tag))
+        meta[tag] = dict(stats=col.stats.as_dict(), built_n=col.built_n,
+                         n_total=col.sharded.n_total, stride=col.sharded.stride,
+                         live=col.live_count(), key=np.asarray(
+                             jax.random.key_data(col._key)).tolist())
+        for dt in ("fp32",) + (("int8",) if ckw else ()):
+            o = col.search(queries, k=10, r0=1.0, steps=6, with_stats=True, dtype=dt)
+            res[f"{tag}/{dt}/d"], res[f"{tag}/{dt}/i"] = np.asarray(o[0]), np.asarray(o[1])
+            for key, v in o[2].items():
+                res[f"{tag}/{dt}/{key}"] = np.asarray(v)
+        # the quantized blocks as the reference's own restore re-derives
+        # them (a live fleet keeps its tombstoned slots' old rows)
+        back = ShardedCollection.restore(str(out / tag), mesh=mesh)
+        res[f"{tag}/qvec_blocks"] = np.asarray(back.sharded.index.qvec_blocks)
+        res[f"{tag}/qvec_scale"] = np.asarray(back.sharded.index.qvec_scale)
+        res[f"{tag}/payload"] = np.asarray(col.payload)
+np.savez(out / "ref.npz", **res)
+(out / "meta.json").write_text(json.dumps(meta))
+print("SHARDED-REF-OK")
+'''
+
+
+def sharded_reference(out_dir) -> tuple[dict, dict]:
+    """Run the reference's sharded path at P = 4 (four forced host
+    devices, in a subprocess) under integer hash functions on integer
+    data, and return its outputs as ``(arrays, meta)``; the snapshots of
+    its collections are left under ``out_dir / "col"`` and ``"col8"``."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={SHARDS}",
+               PYTHONPATH=os.pathsep.join([str(here.parent / "src"), str(here)]))
+    proc = subprocess.run([sys.executable, "-c", _SHARDED_SCRIPT, str(out_dir)],
+                          capture_output=True, text=True, env=env, timeout=600,
+                          check=False)
+    if proc.returncode != 0 or "SHARDED-REF-OK" not in proc.stdout:
+        raise RuntimeError(f"the reference's sharded run failed:\n{proc.stderr[-4000:]}")
+    z = np.load(Path(out_dir) / "ref.npz")
+    return {k: z[k] for k in z.files}, json.loads((Path(out_dir) / "meta.json").read_text())
+
+
+def sharded_lifecycle_fixture():
+    """The data, inserts and queries of ``tests/test_sharded_lifecycle.py``'s
+    fixture (800 + 200 + 32 points, d = 16), and its build key."""
+    kd, kb = jax.random.split(jax.random.key(29))
+    allpts = make_clustered(kd, 1032, 16, n_clusters=8, spread=0.02)
+    pts, q, _ = normalize_scale(allpts[:1000], allpts[1000:])
+    allpts = np.concatenate([np.asarray(pts), np.asarray(q)])
+    return allpts[:800], allpts[800:1000], allpts[1000:], kb
+
+
+def ref_sharded_collection(name: str, key, data: np.ndarray, **kw):
+    """A reference ``ShardedCollection`` on a one-device mesh (this
+    process keeps JAX's one CPU device)."""
+    mesh = jax.make_mesh((1,), ("data",))
+    return ref_modules().store.ShardedCollection.create(name, key, data, mesh, **kw)
+
+
+class HostWaits(TorchDispatchMode):
+    """Records the ops of a CPU run that would make the host wait for the
+    card on CUDA tensors: a read of a tensor's value
+    (``_local_scalar_dense``: ``item``, ``bool``, ``int``), ``nonzero``, a
+    move of a tensor to a device by a plain copy (``_to_copy`` with a
+    ``device``: from pageable memory the copy synchronises the stream),
+    and a ``where`` given a 0-dim tensor made from host data (``where``
+    copies such an operand to the card; a Python scalar becomes a
+    ``scalar_tensor`` on the operands' device instead)."""
+
+    def __init__(self):
+        super().__init__()
+        self.found, self._scalars = [], set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        aten = torch.ops.aten
+        if func in (aten._local_scalar_dense.default, aten.nonzero.default) or (
+                func == aten._to_copy.default and "device" in kwargs):
+            self.found.append(str(func))
+        elif func == aten.scalar_tensor.default:
+            self._scalars.add(id(out))
+        elif func == aten.where.self and any(
+                isinstance(a, torch.Tensor) and a.dim() == 0 and id(a) not in self._scalars
+                for a in args):
+            self.found.append("where with a 0-dim tensor made from host data")
+        return out

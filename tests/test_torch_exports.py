@@ -24,17 +24,18 @@ from repro_torch.data import make_uniform, paper_dataset_specs  # noqa: E402
 WAITING = {
     "core": {"FBLSH", "MQIndex", "C2Index"},  # A16: baselines
     "core.baselines": {"FBLSH", "MQIndex", "C2Index"},  # A16
-    "store": {"ShardedCollection", "open_collection"},  # A15: router
 }
 
 PORTED = (
     "core", "core.baselines", "core.hashing", "core.index", "core.params",
-    "core.query", "core.serve_search", "core.updates", "data", "data.vectors",
+    "core.query", "core.serve_search", "core.updates", "core.distributed",
+    "data", "data.vectors",
     "kernels", "kernels.ref", "checkpoint", "checkpoint.checkpointer",
     "resilience", "resilience.faults", "resilience.stragglers", "resilience.degrade",
     "tune", "tune.adaptive", "tune.planner", "tune.policy",
     "obs", "obs.explain", "obs.metrics", "obs.slo", "obs.trace",
-    "store", "store.cache", "store.collection", "store.lifecycle", "store.service",
+    "store", "store.cache", "store.collection", "store.lifecycle", "store.router",
+    "store.service",
 )
 
 

@@ -19,7 +19,14 @@ from repro_torch.core import (  # noqa: E402
     search_batch_fixed_ref,
 )
 from repro_torch.data import make_clustered, make_uniform  # noqa: E402
-from repro_torch.store import Collection, StoreService, restore_collection  # noqa: E402
+from repro_torch.core.distributed import build_sharded, make_mesh  # noqa: E402
+from repro_torch.store import (  # noqa: E402
+    Collection,
+    ShardedCollection,
+    StoreService,
+    open_collection,
+    restore_collection,
+)
 from repro_torch.core.serve_search import _gather_pool  # noqa: E402
 from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
 
@@ -78,6 +85,19 @@ d, i, tickets = svc.serve("iso", queries[:5].numpy())
 assert d.shape == (5, 5) and not any(t.cached for t in tickets)
 assert all(t.cached for t in svc.serve("iso", queries[:5].numpy())[2])
 assert isinstance(svc.cache, QueryResultCache)
+from repro_torch.core.distributed import make_mesh
+from repro_torch.store import ShardedCollection, open_collection
+fleet = open_collection("iso2", gen, data, max_points_per_shard=100,
+                        mesh=make_mesh(2, devices=["cpu"] * 2), k=5, K=4, L=2,
+                        block_size=16, inline_vectors=True)
+assert isinstance(fleet, ShardedCollection)
+fleet.remove(fleet.add(queries[:4])[:2])
+with tempfile.TemporaryDirectory() as tmp:
+    fleet.snapshot(tmp)
+    back = restore_collection(tmp, mesh=make_mesh(2, devices=["cpu"] * 2))
+assert torch.equal(back.search(queries, k=5)[1], fleet.search(queries, k=5)[1])
+svc.attach(fleet)
+assert svc.serve("iso2", queries[:5].numpy())[2][0].engine == "torch"
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
@@ -132,6 +152,12 @@ def test_entry_points_need_a_device_without_cuda(tmp_path):
         lambda: Collection.restore(str(tmp_path)),
         lambda: restore_collection(str(tmp_path)),
         lambda: StoreService().create_collection("c", gen, data, params=params),
+        lambda: make_mesh(2),
+        lambda: build_sharded(gen, data, params, make_mesh(2)),
+        lambda: ShardedCollection.create("c", gen, data, make_mesh(2), params=params),
+        lambda: open_collection("c", gen, data, params=params),
+        lambda: open_collection("c", gen, data, params=params, mesh=None,
+                                max_points_per_shard=8),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

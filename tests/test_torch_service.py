@@ -46,7 +46,6 @@ torch = pytest.importorskip("torch")
 R = pytest.importorskip("_torch_parity")
 
 import repro_torch.store as port_store  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DBLSHParams,
@@ -640,34 +639,7 @@ def test_service_matches_reference(setup, ref_col, col, engine, depth):
     assert psvc.cache_stats() == rsvc.cache_stats()
 
 
-class _HostWaits(TorchDispatchMode):
-    """Records the ops of a CPU run that would make the host wait for the
-    card on CUDA tensors: a read of a tensor's value
-    (``_local_scalar_dense``: ``item``, ``bool``, ``int``), ``nonzero``, a
-    move of a tensor to a device by a plain copy (``_to_copy`` with a
-    ``device``: from pageable memory the copy synchronises the stream),
-    and a ``where`` given a 0-dim tensor made from host data (``where``
-    copies such an operand to the card; a Python scalar becomes a
-    ``scalar_tensor`` on the operands' device instead)."""
-
-    def __init__(self):
-        super().__init__()
-        self.found, self._scalars = [], set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        aten = torch.ops.aten
-        if func in (aten._local_scalar_dense.default, aten.nonzero.default) or (
-                func == aten._to_copy.default and "device" in kwargs):
-            self.found.append(str(func))
-        elif func == aten.scalar_tensor.default:
-            self._scalars.add(id(out))
-        elif func == aten.where.self and any(
-                isinstance(a, torch.Tensor) and a.dim() == 0 and id(a) not in self._scalars
-                for a in args):
-            self.found.append("where with a 0-dim tensor made from host data")
-        return out
+_HostWaits = R.HostWaits
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -23,7 +23,7 @@ tests/test_store.py and to the reference's own collections.
   service, mixed engines split per dispatch), on the port's
   ``StoreService``.
 
-The router and sharded cases wait for the port of ``store/router.py``.
+The router and sharded cases are in tests/test_torch_router.py.
 """
 
 import dataclasses
@@ -302,9 +302,11 @@ def test_snapshot_restore_after_updates(setup, tmp_path):
 
 
 def test_sharded_snapshot_is_refused(setup, tmp_path):
-    """A snapshot whose manifest says ``sharded`` raises, naming the
-    placement that is not ported, with or without ``mesh=``; it is never
-    restored locally in its place."""
+    """A snapshot whose manifest says ``sharded`` is never restored locally
+    in its place: without ``mesh=`` ``restore_collection`` raises asking
+    for one, and ``Collection.restore`` raises naming the sharded
+    placement's restore (tests/test_torch_router.py restores sharded
+    snapshots onto a mesh)."""
     data, _, _ = setup
     col = Collection.create("sh", _gen(), data[:200], **DERIVE, device=CPU)
     col.snapshot(str(tmp_path))
@@ -312,10 +314,9 @@ def test_sharded_snapshot_is_refused(setup, tmp_path):
     manifest = json.loads(mpath.read_text())
     manifest["meta"].update(placement="sharded", shards=4)
     mpath.write_text(json.dumps(manifest))
-    for mesh in (None, object()):
-        with pytest.raises(NotImplementedError, match="A15"):
-            restore_collection(str(tmp_path), mesh=mesh, device=CPU)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="4 shards.*pass mesh="):
+        restore_collection(str(tmp_path), device=CPU)
+    with pytest.raises(ValueError, match="ShardedCollection.restore"):
         Collection.restore(str(tmp_path), device=CPU)
 
 

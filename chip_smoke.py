@@ -27,7 +27,9 @@ Phases, each printing a line (with its seconds) when it passes:
                  :496-532's shapes and at the edges of its bf16 and fp32
                  tiles in fp32 and bf16 (rtol 1e-4, atol 1e-4 x d), on
                  bases not 16-byte aligned (bit-equal to the aligned call),
-                 and bit-equal on integer inputs;
+                 and bit-equal on integer inputs; B1/B2 at the kNN-LM
+                 datastore's width (d = 4096, K = 10 and 3077, Q = 1/4/64)
+                 bit-equal to the twin on integer inputs;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
                  queries, steps = 8, r0 = 0.5) through the one-pass
@@ -187,7 +189,43 @@ Phases, each printing a line (with its seconds) when it passes:
                  its payload moved with it, compaction after most of one
                  shard is removed (rebalanced, id map ascending, the retained
                  calibration re-fit), an add past the stride renumbering once,
-                 an int8 fleet's snapshot re-quantized per shard.
+                 an int8 fleet's snapshot re-quantized per shard;
+16. baselines  — the paper's baselines, ``repro_torch.core.{FBLSH, MQIndex,
+                 C2Index}``, with benchmarks/common.py's settings on the main
+                 workload: each built on a 20,000-point slice on the card and
+                 held against the same function on the CPU over the same
+                 arrays (id sets equal up to near-ties at the 10th distance,
+                 d2 within d x 2^-24); then at n = 1,000,000 their recall@10
+                 against brute force, ms a query (Q = 64) and build seconds,
+                 beside the one-pass DB-LSH search on torch and kernel
+                 (Table 4's comparison);
+17. knnlm       — kNN-LM serving, ``repro_torch.serve``, with yi-9b at its full
+                 width (48 x 4096, 32/4 heads, d_ff 11008, vocab 64000; fp32
+                 weights drawn by the reference's init rules from a seed, bf16
+                 compute) after phases 1-16 freed the card: ``build_datastore``
+                 over 32 batches of 8 x 1024 synthetic tokens (262,144 keys at
+                 d = 4096; forward tokens/s, index build s, derived K and L);
+                 r0 so that the last radius covers the median 8th-NN distance
+                 of 256 held-out states; the same index behind B2 (engine
+                 kernel) and, with a vector copy per table, B1 (inline).
+                 Gates: on the held-out states the kernel and inline id sets
+                 equal torch's up to near-ties at the k-th distance and the
+                 returned distances equal the keys' (norm form, atol 4e-6 x
+                 the norms); ``knn_probs`` rows sum to 1 where a neighbour was
+                 found and the interpolated log-probabilities are finite;
+                 prefill of 64 tokens equals prefill of 63 plus one decode
+                 (fp32 within 2e-3, bf16 within LM_BF16_TOL); 16 requests
+                 (prompts of 32-128 tokens, 32 new tokens, half greedy, half
+                 at temperature 0.8 / top-k 40) served on 4 slots without
+                 retrieval and through each datastore, every one finished
+                 with its 32 tokens, B2 / B1 launched on their runs and no
+                 kernel on torch's; two greedy requests decoded alone equal
+                 the shared batch up to a near-tie; B1/B2 held against their
+                 twins on this path's inputs (d = 4096, Q = 4). Reported:
+                 recall@8 and the overall ratio of the datastore, decode step
+                 ms p50/p99, tokens/s and the retrieval share per run, the
+                 kernels' times at this shape, the per-layer weight cast's
+                 cost and the peak memory.
 
 Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
@@ -250,6 +288,23 @@ SVC_SHAPES = (1, 4, 16, 64)  # the service's batch shapes (phase 14)
 # 16, 4 and 1, and partial fills 3 -> 4, 13 -> 16 and 40 -> 64
 SVC_CHUNKS = (64, 128, 16, 4, 1, 3, 13, 40)
 SVC_TURNS = (0, 2, 2, 0, 0, 2)  # phase 14's timed passes, per engine: depths in turns
+N_SLICE = 20_000  # phase 16: the baselines on the card against the CPU on this slice
+BASELINES = {  # phase 16: benchmarks/common.py:97-109's settings (class, build, search)
+    "FB-LSH": ("FBLSH", dict(K=10, L=5, w0=4 * 1.5 * 1.5, c=1.5, t=64), dict(r0=0.5)),
+    "MQ(PM-LSH)": ("MQIndex", dict(m=15, beta=0.08), {}),
+    "C2(QALSH)": ("C2Index", dict(m=40, w=2.0), {}),
+}
+# phase 17: kNN-LM serving with a full-width Yi-9B
+LM_ARCH = "yi-9b"
+LM_WIDTH = (48, 4096, 32, 4, 128, 11008, 64000)  # layers, d_model, heads, kv, hd, d_ff, vocab
+LM_SEQ, LM_BATCH, LM_BATCHES = 1024, 8, 32  # the corpus: 262,144 (hidden, next token) pairs
+LM_DS = dict(c=1.5, t=64, k=8, temperature=10.0, lam=0.25)
+LM_STEPS, LM_HELD, LM_CHECK_T = 6, 256, 64
+LM_SLOTS, LM_CACHE, LM_REQUESTS, LM_NEW = 4, 256, 16, 32
+LM_FP32_TOL = 2e-3  # prefill vs decode in fp32: tests/test_arch_smoke.py's tolerance
+# the same in bf16: logits of std ~1 after 48 layers of bf16 rounding (0.082
+# measured at the full width, NVIDIA H100 80GB HBM3, 700 W)
+LM_BF16_TOL = 0.125
 
 
 def check(cond: bool, msg: str) -> None:
@@ -331,6 +386,39 @@ def cand_case(torch, gen, Q, L, Ct, K, d, steps, dev, n=4096):
     q = torch.randn((Q, d), generator=gen, device=dev)
     halves = torch.tensor([0.4 * 1.5 ** j for j in range(steps)], device=dev)
     return (cp, cx, cn.contiguous(), ci, halves, g, q), n
+
+
+def int_fused_case(torch, gen, kind, Q, L, K, d, steps, dev, M=5, nb=8, B=64, Ct=320):
+    """tests/test_torch_kernels.py's integer inputs for B1 ('window') and B2
+    ('cand'): vectors in -2..2, projections on a quarter grid around
+    integer query projections, so every float32 sum is exact and the
+    kernel equals its twin bit for bit; B1's block ids include the invalid
+    sentinel, every 7th B2 slot is +inf."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen, device=dev).float()
+
+    halves = torch.tensor([0.4 * 1.5 ** j for j in range(steps)], device=dev)
+    q = ints(-2, 2, (Q, d))
+    if kind == "window":
+        lnb, n = L * nb, nb * B
+        data = ints(-2, 2, (n, d))
+        ids = torch.cat([torch.randperm(n, generator=gen, device=dev) for _ in range(L)])
+        ids = ids.reshape(lnb, B)
+        vec = data[ids]
+        g0 = ints(-4, 4, (K,))
+        proj = g0 + ints(-3, 3, (lnb, B, K)) * 0.25
+        blk = torch.randint(0, lnb + 1, (Q, L * M), generator=gen, device=dev).int()
+        return (blk, halves, proj, vec, (vec * vec).sum(-1), ids.int(),
+                g0.expand(Q, L, K).contiguous(), q), n
+    n = 4096
+    cx = ints(-2, 2, (Q, L, Ct, d))
+    ci = torch.randint(0, n, (Q, L, Ct), generator=gen, device=dev).int()
+    g = ints(-4, 4, (Q, L, K))
+    cp = g[:, :, None, :] + ints(-3, 3, (Q, L, Ct, K)) * 0.25
+    cn = (cx * cx).sum(-1)
+    cp[:, :, ::7] = torch.inf
+    cn[:, :, ::7] = torch.inf
+    return (cp, cx, cn, ci, halves, g, q), n
 
 
 def topk_err(torch, got, want, n: int, atol: float = 1e-5, rtol: float = 1e-5,
@@ -1196,20 +1284,434 @@ def fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, che
           f"{json.dumps(small_numbers)} ({phase_s():.1f} s)", flush=True)
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+# ------------------------------------------------ 16. the paper's baselines
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the repro_torch package is missing under {SRC}", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
+def edge_ties(torch, got, want, rtol: float, atol: float = 0.0, what: str = "") -> int:
+    """Id-set parity of two (dists, ids) results: filled slots equal,
+    squared distances within ``atol + rtol * d2``, unfilled ids equal; a
+    query's id set may differ only where every differing id's squared
+    distance lies within the tolerance of the k-th (a near-tie at the k
+    cut).  Returns the number of queries that differ at such near-ties."""
+    gd, gi = (x.cpu() for x in got)
+    wd, wi = (x.cpu() for x in want)
+    fin = torch.isfinite(wd)
+    check(torch.equal(fin, torch.isfinite(gd)), f"{what}: filled slots differ")
+    g2, w2 = gd[fin].double() ** 2, wd[fin].double() ** 2
+    check(bool(((g2 - w2).abs() <= atol + rtol * w2).all()),
+          f"{what}: squared distances differ by {float((g2 - w2).abs().max())}")
+    check(torch.equal(gi[~fin].long(), wi[~fin].long()), f"{what}: unfilled ids differ")
+    ties = 0
+    for q in range(gd.shape[0]):
+        f = fin[q]
+        a, b = set(gi[q][f].tolist()), set(wi[q][f].tolist())
+        if a == b:
+            continue
+        edge = float(wd[q][f].max()) ** 2
+        dist = dict(zip(wi[q][f].tolist(), wd[q][f].tolist()))
+        dist.update(zip(gi[q][f].tolist(), gd[q][f].tolist()))
+        check(all(abs(dist[i] ** 2 - edge) <= atol + rtol * edge for i in a ^ b),
+              f"{what}: ids differ at query {q}, off the k edge")
+        ties += 1
+    return ties
+
+
+def recall_at(ids, truth: list, k: int) -> float:
+    """Mean share of each query's true k nearest ids found."""
+    rows = ids.cpu().tolist()
+    return sum(len(set(r[:k]) & t) / k for r, t in zip(rows, truth)) / len(truth)
+
+
+def baselines_phase(torch, dev, card, data, Q64, gt_sets, index, kw, phase_s) -> None:
+    """Phase 16: the paper's baselines beside DB-LSH on the main workload
+    (Table 4's comparison).  The gate holds each baseline on the card
+    against the same function on the CPU over a slice of the points, the
+    same arrays; the 1M figures are reported."""
+    from repro_torch.core import baselines, search_batch_fixed
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    # the diff form's d2 sums d squares in another order on the CPU
+    rtol = D * 2.0 ** -24
+    sl = data[:N_SLICE].contiguous()
+    parity = {}
+    for name, (cls_name, bkw, skw) in BASELINES.items():
+        cls = getattr(baselines, cls_name)
+        small = cls.build(gen, sl, device=dev, **bkw)
+        got = small.search_batch(Q64, k=K_NN, **skw)
+        fields = {f.name: getattr(small, f.name) for f in dataclasses.fields(small)}
+        arrays = {f: v.cpu() for f, v in fields.items() if isinstance(v, torch.Tensor)}
+        meta = {f: v for f, v in fields.items() if not isinstance(v, torch.Tensor)}
+        want = cls.from_arrays(arrays, device="cpu", **meta).search_batch(Q64.cpu(), k=K_NN,
+                                                                          **skw)
+        parity[name] = edge_ties(torch, got, want, rtol, 1e-12, f"{name} card vs CPU")
+        check(bool(torch.isfinite(got[0][:, 0]).any()), f"{name} found nothing")
+    print(f"[baselines] ok: each baseline on the card equals the CPU on {N_SLICE:,} points "
+          f"(id sets, near-ties at the 10th distance allowed: {json.dumps(parity)} queries; "
+          f"d2 rtol {rtol:.2e})", flush=True)
+
+    table = {}
+    for name, (cls_name, bkw, skw) in BASELINES.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = getattr(baselines, cls_name).build(gen, data, device=dev, **bkw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ms = wall_ms(torch, lambda: idx.search_batch(Q64, k=K_NN, **skw), repeats=2)
+        _, ids = idx.search_batch(Q64, k=K_NN, **skw)
+        table[name] = {"recall@10": round(recall_at(ids, gt_sets, K_NN), 4),
+                       "ms_per_query": round(ms / N_QUERIES, 4), "build_s": round(build_s, 3)}
+        del idx
+    for engine in ("torch", "kernel"):
+        ms = wall_ms(torch, lambda: search_batch_fixed(index, Q64, engine=engine, **kw),
+                     repeats=5)
+        _, ids = search_batch_fixed(index, Q64, engine=engine, **kw)[:2]
+        table[f"DB-LSH ({engine})"] = {"recall@10": round(recall_at(ids, gt_sets, K_NN), 4),
+                                       "ms_per_query": round(ms / N_QUERIES, 4),
+                                       "build_s": "phase 3"}
+    torch.cuda.empty_cache()
+    print(f"[baselines] {card}: n = {N:,}, d = {D}, Q = {N_QUERIES}, k = {K_NN} (wall of a "
+          f"batch over Q; FB-LSH r0 = 0.5, DB-LSH r0 = {R0}, steps {STEPS}): "
+          f"{json.dumps(table)} ({phase_s():.1f} s)", flush=True)
+
+
+# --------------------------------------------- 17. kNN-LM serving, Yi-9B
+
+
+def inline_index(torch, index):
+    """``index`` with the per-table vector copy (``inline_vectors``) added:
+    the rows of ``data`` in each table's STR order, zero rows for the
+    padding, as ``build`` lays them out; every other array shared."""
+    L, nb, B = index.ids_blocks.shape
+    n, d = index.data.shape
+    vec = torch.zeros((L, nb * B, d), device=index.data.device)
+    for li in range(L):
+        ids = index.ids_blocks[li].reshape(-1).long()
+        real = torch.nonzero(ids < n).squeeze(1)
+        vec[li].index_copy_(0, real, index.data[ids[real]])
+    return dataclasses.replace(index, vec_blocks=vec.reshape(L, nb, B, d),
+                               params=dataclasses.replace(index.params, inline_vectors=True))
+
+
+def lm_requests(np, vocab: int):
+    """Phase 17's requests: prompts of 32-128 tokens, LM_NEW new tokens
+    each, even uids greedy, odd ones at temperature 0.8 with top-k 40."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(32, 129, LM_REQUESTS)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, int(n_)).astype(np.int32),
+                    max_new_tokens=LM_NEW, temperature=0.0 if i % 2 == 0 else 0.8, top_k=40)
+            for i, n_ in enumerate(lens)]
+
+
+def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s) -> None:
+    """Phase 17: kNN-LM serving with a full-width Yi-9B (random weights) and
+    a DB-LSH datastore of its own hidden states, through the torch engine
+    and the fused kernels B2 (kernel) and B1 (inline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import brute_force
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.models.registry import build_model, param_count
+    from repro_torch.models.transformer import logits_fn
+    from repro_torch.serve import (Datastore, Request, RetrievalLM, ServeEngine, build_datastore,
+                                   knn_probs)
+    from repro_torch.serve.retrieval import interpolate
+    from repro_torch.store import Collection
+
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[knnlm] held on the card before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    check((len(params.blocks), params.embed.shape[1], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, params.embed.shape[0]) == LM_WIDTH,
+          f"the model is not {LM_ARCH} at its full width")
+    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
+    print(f"[knnlm] {LM_ARCH}: {n_params:,} parameters, "
+          f"{n_params * 4 / 1e9:.1f} GB in fp32, drawn in {init_s:.1f} s; compute in "
+          f"{cfg.dtype} (each layer's weights cast as it runs)", flush=True)
+
+    # the datastore: a teacher-forced pass over the synthetic corpus
+    src = SyntheticTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=SEED)
+    batch_fn = make_batch_fn(src)
+    batches = [batch_fn(s) for s in range(LM_BATCHES)]
+    fwd = {"s": 0.0}
+
+    def timed_loss(p, b, mesh=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.loss(p, b)
+        torch.cuda.synchronize()
+        fwd["s"] += time.perf_counter() - t
+        return out
+
+    t0 = time.perf_counter()
+    ds = build_datastore(dataclasses.replace(model, loss=timed_loss), params, batches,
+                         torch.Generator(device=dev).manual_seed(1), device=dev, **LM_DS)
+    torch.cuda.synchronize()
+    ds_s = time.perf_counter() - t0
+    keys = ds.index.data
+    n_keys = LM_BATCHES * LM_BATCH * LM_SEQ
+    check(tuple(keys.shape) == (n_keys, LM_WIDTH[1]) and ds.values.shape[0] == n_keys,
+          f"datastore holds {tuple(keys.shape)}")
+    check(bool(torch.isfinite(keys).all()), "non-finite hidden states in the datastore")
+    p_lsh = ds.index.params
+    print(f"[knnlm] datastore: {n_keys:,} keys of d = {keys.shape[1]} ({keys.numel() * 4 / 1e9:.2f}"
+          f" GB) in {ds_s:.1f} s: teacher-forced pass {fwd['s']:.1f} s "
+          f"({n_keys / fwd['s']:,.0f} tokens/s), index build {ds_s - fwd['s']:.1f} s; derived "
+          f"K = {p_lsh.K}, L = {p_lsh.L}, B = {p_lsh.block_size}, M = {p_lsh.max_blocks}, "
+          f"index {ds.index.memory_bytes() / 1e9:.2f} GB", flush=True)
+    del batches
+
+    # held-out states (another batch, every 32nd position) and r0 from them
+    with torch.inference_mode():
+        hb = model.loss(params, batch_fn(LM_BATCHES))[1]["hidden"]
+    held = hb[:, ::LM_SEQ * LM_BATCH // LM_HELD].reshape(-1, hb.shape[-1]).float().contiguous()
+    del hb
+    check(held.shape[0] == LM_HELD, f"{held.shape[0]} held-out states")
+    bd, bi = brute_force(keys, held, k=LM_DS["k"], device=dev)
+    truth = [set(r) for r in bi.cpu().tolist()]
+    med = float(bd[:, -1].median())
+    r0 = med / LM_DS["c"] ** (LM_STEPS - 1)
+    norms = keys.square().sum(-1).sqrt()
+    print(f"[knnlm] hidden-state norms {float(norms.min()):.1f}-{float(norms.max()):.1f}; "
+          f"median 8th-NN distance of {LM_HELD} held-out states {med:.3f} -> r0 = {r0:.4f} "
+          f"(r0 c^{LM_STEPS - 1} covers it)", flush=True)
+
+    # the same keys behind B2 (kernel) and, where the card has the room, B1
+    # (inline: a vector copy per table)
+    stores = {"torch": ds, "kernel": Datastore(Collection.from_index(
+        "knnlm-kernel", ds.index, payload=ds.values, engine="kernel"),
+        ds.temperature, ds.lam, ds.k)}
+    need = p_lsh.L * keys.numel() * 4
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    if free > need + (8 << 30):
+        stores["inline"] = Datastore(Collection.from_index(
+            "knnlm-inline", inline_index(torch, ds.index), payload=ds.values, engine="inline"),
+            ds.temperature, ds.lam, ds.k)
+    print(f"[knnlm] datastores: {sorted(stores)} (inline needs {need / 1e9:.1f} GB, "
+          f"{free / 1e9:.1f} GB free)", flush=True)
+
+    # gates 5-6 on the held-out states, and what they find
+    scale = norm_scale(torch, keys, held)
+    atol = NORM_ATOL * scale
+    found, summary = {}, {}
+    for name, s in stores.items():
+        # in chunks: the selection's (Q, L, nb, K) terms are 0.1 GB a query
+        # at K = 3077
+        parts = [s.search(held[j:j + LM_SLOTS * 4], r0=r0, steps=LM_STEPS)
+                 for j in range(0, LM_HELD, LM_SLOTS * 4)]
+        d_, i_ = (torch.cat(t) for t in zip(*parts))
+        found[name] = (d_, i_)
+        fin = torch.isfinite(d_)
+        rows = torch.nonzero(fin)[:, 0]
+        exact = (keys[i_[fin].long()] - held[rows]).square().sum(-1)
+        err = float((d_[fin].double() ** 2 - exact.double()).abs().max()) if fin.any() else 0.0
+        check(err <= atol, f"{name}: returned distances off the keys' by {err} in d2 "
+                           f"(atol {atol:.4f})")
+        # the paper's overall ratio: returned over true distance, rank by rank
+        ratio = float((d_[fin] / bd.expand_as(d_)[fin]).mean()) if fin.any() else 0.0
+        summary[name] = {"recall@8": round(recall_at(i_, truth, LM_DS["k"]), 4),
+                         "ratio": round(ratio, 4),
+                         "all_k_found": round(float(fin.all(1).float().mean()), 4),
+                         "d2_err": round(err, 5)}
+    for name in stores:
+        if name != "torch":
+            summary[name]["near_ties"] = norm_edge_ties(torch, found[name], found["torch"],
+                                                         atol)
+    check(summary["torch"]["all_k_found"] > 0, "no held-out state found its k neighbours")
+    print(f"[knnlm] ok: held-out searches (r0 {r0:.4f}, steps {LM_STEPS}, k {LM_DS['k']}): "
+          f"kernel/inline id sets equal torch's up to near-ties, distances equal the keys' "
+          f"(norm form, atol {atol:.4f}); {json.dumps(summary)}", flush=True)
+
+    # gate 4: the retrieval distribution and the interpolation
+    with torch.inference_mode():
+        p = torch.cat([knn_probs(ds, held[j:j + LM_SLOTS * 4], cfg.padded_vocab, r0=r0,
+                                 steps=LM_STEPS) for j in range(0, LM_HELD, LM_SLOTS * 4)])
+        hit = torch.isfinite(found["torch"][0][:, 0])
+        sums = p.sum(-1)
+        check(bool(torch.allclose(sums[hit], torch.ones_like(sums[hit]), rtol=1e-3)),
+              "knn_probs rows with a neighbour do not sum to 1")
+        check(bool((sums[~hit] == 0).all()), "knn_probs rows without a neighbour are not 0")
+        logp = torch.log(interpolate(logits_fn(params, held.to(torch.bfloat16), cfg), p,
+                                     ds.lam) + 1e-20)
+        check(bool(torch.isfinite(logp).all()), "interpolated log-probabilities not finite")
+
+    # gate 1: prefill of T against prefill of T - 1 and one decode, in fp32
+    # (the reference's tolerance) and in the compute dtype
+    prompt = torch.as_tensor(batch_fn(0)["tokens"][:1, :LM_CHECK_T], device=dev)
+    gaps = {}
+    for m, tol in ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL), (model, LM_BF16_TOL)):
+        with torch.inference_mode():
+            full = m.prefill(params, {"tokens": prompt}, cache_len=LM_CHECK_T)[0].float()
+            _, _, c = m.prefill(params, {"tokens": prompt[:, :-1]}, cache_len=LM_CHECK_T)
+            dec = m.decode(params, prompt[:, -1], c, LM_CHECK_T - 1)[0].float()
+        err = float((dec - full).abs().max())
+        gaps[m.cfg.dtype] = round(err, 6)
+        check(bool(torch.allclose(dec, full, rtol=tol, atol=tol)),
+              f"{m.cfg.dtype}: decode after prefill differs from prefill by {err} (tol {tol})")
+    print(f"[knnlm] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode, "
+          f"max |dlogit| {json.dumps(gaps)} (tol fp32 {LM_FP32_TOL}, {cfg.dtype} "
+          f"{LM_BF16_TOL}); logits std {float(full.std()):.3f}", flush=True)
+
+    # serving: the same 16 requests without retrieval and through each datastore
+    def serve(store):
+        eng = ServeEngine(model, params, slots=LM_SLOTS, cache_len=LM_CACHE,
+                          retrieval=None if store is None else RetrievalLM(
+                              model, store, r0=r0, steps=LM_STEPS))
+        steps_ms, search_ms = [], []
+        inner = eng._step
+
+        def step(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*a)
+            check(bool(torch.isfinite(out[0]).all()), "non-finite decode log-probabilities")
+            steps_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        eng._step = step
+        if store is not None:
+            search = store.search
+
+            def timed_search(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = search(*a, **k)
+                torch.cuda.synchronize()
+                search_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            store.search = timed_search
+        reqs = lm_requests(np, cfg.vocab_size)
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        n_steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = dict(kernels.launches)
+        if store is not None:
+            del store.search
+        check(all(r.done and len(r.output) == LM_NEW for r in reqs),
+              "a request ended without its max_new_tokens")
+        check(all(0 <= tok < cfg.padded_vocab for r in reqs for tok in r.output),
+              "a token outside the vocabulary")
+        return reqs, {"engine_steps": n_steps, "wall_s": round(wall, 3),
+                      "tokens_per_s": round(LM_REQUESTS * LM_NEW / wall, 2),
+                      "step_ms_p50": round(float(np.percentile(steps_ms, 50)), 3),
+                      "step_ms_p99": round(float(np.percentile(steps_ms, 99)), 3),
+                      "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4)
+                      if search_ms else 0.0}, launched
+
+    served, runs, path_launches = {}, {}, {}
+    for name in ("none", *stores):
+        served[name], runs[name], launched = serve(None if name == "none" else stores[name])
+        path_launches[name] = {k: launched[k] for k in FUSED}
+    check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
+    check(not any(path_launches["torch"].values()), "the torch datastore launched a kernel")
+    if "inline" in stores:
+        check(path_launches["inline"]["fused_window_search"] > 0,
+              "the inline datastore never ran B1")
+    print(f"[knnlm] ok: {LM_REQUESTS} requests x {LM_NEW} new tokens each served on "
+          f"{LM_SLOTS} slots (cache {LM_CACHE}), half greedy, half at temperature 0.8 / top-k "
+          f"40; {card}: {json.dumps(runs)}; launches {json.dumps(path_launches)}", flush=True)
+
+    # gate 2: a greedy request decoded alone gives the shared batch's tokens;
+    # they may part only at a token whose top-two logit gap is within the
+    # tolerance (a near-tie), after which their contexts differ
+    def recording(fn, logs):
+        """``fn`` (a prefill or a decode step) keeping its first row of logits."""
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            logs.append(out[0][0].float())
+            return out
+        return wrapped
+
+    compared, parted = 0, []
+    for req in served["none"][:4:2]:
+        logs = []
+        eng = ServeEngine(dataclasses.replace(model, prefill=recording(model.prefill, logs)),
+                          params, slots=1, cache_len=LM_CACHE)
+        eng._step = recording(eng._step, logs)
+        solo = Request(uid=req.uid, prompt=req.prompt, max_new_tokens=LM_NEW)
+        eng.submit(solo)
+        eng.run()
+        for j, (a_, b_) in enumerate(zip(solo.output, req.output)):
+            if a_ != b_:
+                top2 = torch.topk(logs[j], 2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= LM_BF16_TOL, f"request {req.uid}: token {j} differs alone "
+                      f"({a_}) and shared ({b_}) at a top-two gap of {gap}")
+                parted.append((req.uid, j, round(gap, 4)))
+                break
+            compared += 1
+    print(f"[knnlm] ok: two greedy requests decoded alone equal the shared batch over "
+          f"{compared} tokens; parted at near-ties (uid, token, top-two gap <= "
+          f"{LM_BF16_TOL}): {parted}", flush=True)
+
+    # the kernels at this path's shapes (d = 4096, the serving engine's
+    # slots), against their twins, and their times
+    h4 = held[:LM_SLOTS].contiguous()
+    for name, engine in (("fused_cand_search", "kernel"), ("fused_window_search", "inline")):
+        if engine not in stores:
+            continue
+        a, k = capture_calls(kernels, wrappers, name,
+                             lambda: stores[engine].search(h4, r0=r0, steps=LM_STEPS))
+        nrm, q = (a[4], a[7]) if name == "fused_window_search" else (a[2], a[6])
+        sc = float(nrm[torch.isfinite(nrm)].max()) + float((q * q).sum(-1).max())
+        err = 0.0
+        for mode, tol in (("norm", dict(atol=NORM_ATOL * sc)),
+                          ("exact", dict(atol=1e-5, rtol=q.shape[-1] * 2.0 ** -24))):
+            kk = dict(k, mode=mode)
+            err = max(err, bins_err(torch, wrappers[name](*a, **kk), twins[name](*a, **kk),
+                                    edge_ties=True, **tol))
+        ms = cuda_ms(torch, lambda: wrappers[name](*a, **k), iters=50)
+        plain_ms = cuda_ms(torch, lambda: twins[name](*a, **k), iters=5)
+        dev_us, dev_how = device_us(torch, lambda: wrappers[name](*a, **k), f"{name}_kernel")
+        in_bytes, out_bytes, ops, ops_ms = work(torch, name, a, k)
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        records.append({
+            "name": f"{name}@knnlm", "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": path_launches[engine][name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by, "library_ms": None,
+        })
+        K = (a[6] if name == "fused_window_search" else a[5]).shape[-1]
+        print(f"[knnlm] {name}@knnlm: Q={q.shape[0]}, d={q.shape[-1]}, K={K}: median {ms:.4f} ms/launch (device {dev_us:.1f} us by {dev_how}; twin "
+              f"{plain_ms:.3f} ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
+              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop); max |err| vs "
+              f"twin {err:.3g}", flush=True)
+
+    # what casting each layer's weights to bf16 costs a decode step
+    blocks = list(params.blocks)
+
+    def cast_all():
+        for b in blocks:
+            for w in b.parameters():
+                if w.dim() > 1:
+                    w.to(torch.bfloat16)
+
+    cast_ms = cuda_ms(torch, cast_all, iters=3)
+    print(f"[knnlm] the per-layer weight cast (fp32 -> bf16, 48 layers) takes {cast_ms:.2f} ms "
+          f"of a decode step; a bf16 copy kept at load would cost "
+          f"{sum(p.numel() for b in blocks for p in b.parameters() if p.dim() > 1) * 2 / 1e9:.1f}"
+          f" GB; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"({phase_s():.1f} s)", flush=True)
+    del stores, ds, params
+    torch.cuda.empty_cache()
+
+
+def search_phases(torch, np):
+    """Phases 1-16; returns what phase 17 and the last lines need."""
     from repro_torch import kernels
     from repro_torch.core import (
         DBLSHParams,
@@ -1476,6 +1978,22 @@ def main() -> int:
                   f"bit-equal to the twin (max |err| {float((got - want).abs().max())})")
             n_cases += 1
     max_err["pairwise_l2"] = max(l2_err.values())
+    # B1/B2 at the kNN-LM datastore's width (d = 4096; K = 10 and the K =
+    # 3077, L = 2 derived for its 262,144 keys) on integer inputs, Q = 1, the
+    # serving engine's 4 slots and 64: bit-equal to the twin
+    lm_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for Q, K, kind, mode in itertools.product((1, 4, 64), (10, 3077), ("window", "cand"),
+                                              ("norm", "exact")):
+        args, n = int_fused_case(torch, lm_gen, kind, Q, 2, K, 4096, 6, dev)
+        name = f"fused_{kind}_search"
+        kk = dict(ks=LM_DS["k"], n=n, mode=mode, **({"M": 5} if kind == "window" else {}))
+        got = wrappers[name](*args, **kk)
+        torch.cuda.synchronize()
+        want = twins[name](*args, **kk)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(got, want)),
+              f"{name} at d = 4096, K = {K}, Q = {Q}, {mode}: not bit-equal to the twin")
+        n_cases += 1
+        del args, got, want
     print(f"[twins] ok: {n_cases} kernel-vs-twin cases agree (counts equal, "
           f"rtol = atol = 1e-5, id sets per bin / per query; B3 bf16: bin id overlap "
           f">= 0.98; B4/B5: hw bit-equal, d2 rtol 1e-5 + atol {NORM_ATOL} x the norms "
@@ -2732,7 +3250,39 @@ def main() -> int:
     # ------------------------------------------------ 15. the sharded fleet
     fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, check_tickets,
                 phase_s)
-    print(f"[fleet] the whole run took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ----------------------------------------------- 16. the paper's baselines
+    baselines_phase(torch, dev, card, data, Q64, gt_sets, index, kw, phase_s)
+    return dict(kernels=kernels, wrappers=wrappers, twins=twins, records=records, card=card,
+                dev=dev, t_start=t_start, phase_s=phase_s)
+
+
+def main() -> int:
+    import gc
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the repro_torch package is missing under {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    st = search_phases(torch, np)
+    # every tensor of phases 1-16 went with their frames: the card is free
+    # for the model
+    gc.collect()
+    torch.cuda.empty_cache()
+    card, records = st["card"], st["records"]
+    # ------------------------------------------ 17. kNN-LM serving, Yi-9B
+    knnlm_phase(torch, np, st["dev"], card, st["kernels"], st["wrappers"], st["twins"],
+                records, st["phase_s"])
+    print(f"[knnlm] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,9 @@
+"""Phi-3-medium-14B: dense GQA, RoPE, SwiGLU [arXiv:2404.14219]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10,
+    d_ff=17920, vocab_size=100352, head_dim=128,
+    rope_theta=10_000.0, sp_residual=True,
+)

@@ -17,7 +17,7 @@ from .params import DBLSHParams, alpha_of_gamma, rho_star
 from .hashing import collision_prob, normal_pdf, normal_sf, project, sample_projections
 from .index import DBLSHIndex, build, compute_norm_blocks, from_arrays, quantize_blocks
 from .query import merge_dedup_topk, probe_radius, rc_nn, search, search_batch
-from .baselines import brute_force
+from .baselines import C2Index, FBLSH, MQIndex, brute_force
 from .serve_search import (
     DTYPES,
     ENGINES,
@@ -64,6 +64,9 @@ __all__ = [
     "rc_nn",
     "probe_radius",
     "brute_force",
+    "FBLSH",
+    "MQIndex",
+    "C2Index",
     "grown_params",
     "insert",
     "delete",

@@ -1,0 +1,9 @@
+"""LM zoo on PyTorch: the dense decoder-only family (ROADMAP A17).
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_config("yi-9b"))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    logits, hidden, caches = model.prefill(params, {"tokens": tokens}, cache_len=256)
+"""

@@ -117,6 +117,14 @@ __all__ = [
     "SHARDS",
     "SHARDED_KW",
     "ref_collection_arrays",
+    "baselines_reference",
+    "BASELINE_FIELDS",
+    "RefLM",
+    "ref_chunked_threshold",
+    "ref_kv_chunked_context",
+    "ref_token_batch",
+    "ref_knn_probs",
+    "ref_configs",
 ]
 
 INDEX_FIELDS = (
@@ -475,10 +483,16 @@ class integer_projections:
 
 def ref_exports(module: str) -> list[str]:
     """``__all__`` of the reference module ``repro.<module>`` (``""``: the
-    package itself)."""
+    package itself); a package without one (``repro.serve``) exports the
+    public names it imports, its submodules aside."""
     import importlib
+    import types
 
-    return list(importlib.import_module("repro" + (f".{module}" if module else "")).__all__)
+    mod = importlib.import_module("repro" + (f".{module}" if module else ""))
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n, v in vars(mod).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)]
 
 
 # ---------------------------------------------------------------------------
@@ -663,3 +677,166 @@ class HostWaits(TorchDispatchMode):
                 for a in args):
             self.found.append("where with a 0-dim tensor made from host data")
         return out
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines (``repro.core.baselines``)
+# ---------------------------------------------------------------------------
+
+BASELINE_FIELDS = {
+    "FBLSH": (("proj_vecs", "proj", "offsets", "data"),
+              ("K", "L", "w0", "c", "t", "max_radius_steps", "cand_cap")),
+    "MQIndex": (("proj_vecs", "proj", "data"), ("m", "beta")),
+    "C2Index": (("proj_vecs", "proj", "data"), ("m", "l", "w", "cand_cap")),
+}
+
+
+def baselines_reference(data: np.ndarray, queries: np.ndarray, specs: dict, k: int = 10):
+    """The reference's baselines built on ``data`` and searched with
+    ``queries``: ``specs`` maps a class name to ``(seed, build_kw,
+    search_kw)``.  Returns, per name, ``(arrays, meta, dists, ids)`` as
+    numpy and plain values, for the port's ``from_arrays``."""
+    from repro.core import baselines as rb
+
+    out = {}
+    for name, (seed, build_kw, search_kw) in specs.items():
+        idx = getattr(rb, name).build(jax.random.key(seed), jnp.asarray(data), **build_kw)
+        d, i = idx.search_batch(jnp.asarray(queries), k=k, **search_kw)
+        arrays, meta = BASELINE_FIELDS[name]
+        out[name] = ({f: np.array(getattr(idx, f)) for f in arrays},
+                     {f: getattr(idx, f) for f in meta}, np.asarray(d), np.asarray(i))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The LM and its serving path (``repro.models``, ``repro.serve``)
+# ---------------------------------------------------------------------------
+
+
+def _np_tree(tree):
+    """A JAX pytree of arrays (dicts and lists) as numpy."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def _jnp_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _jnp_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_jnp_tree(v) for v in tree]
+    return jnp.asarray(tree)
+
+
+def ref_configs():
+    """The reference's ``repro.configs`` package."""
+    import repro.configs
+
+    return repro.configs
+
+
+class RefLM:
+    """A reference model, ``build_model(get_config(arch).smoke().scaled(
+    n_layers=2, **scaled))`` initialised from ``jax.random.key(seed)``;
+    every method takes and returns numpy arrays (caches as numpy trees)."""
+
+    def __init__(self, arch: str, seed: int = 0, **scaled):
+        from repro.configs import get_config
+        from repro.models.registry import build_model
+
+        self.cfg = get_config(arch).smoke().scaled(n_layers=2, **scaled)
+        self.model = build_model(self.cfg)
+        self.params = self.model.init(jax.random.key(seed))
+
+    @property
+    def tree(self) -> dict:
+        return _np_tree(self.params)
+
+    def loss(self, tokens, labels):
+        """(loss, hidden) of the teacher-forced pass, and the logits."""
+        from repro.models import transformer
+
+        loss, metrics = self.model.loss(self.params, {"tokens": jnp.asarray(tokens),
+                                                      "labels": jnp.asarray(labels)})
+        logits = transformer.logits_fn(self.params, metrics["hidden"], self.cfg)
+        return float(loss), np.asarray(metrics["hidden"]), np.asarray(logits)
+
+    def prefill(self, tokens, cache_len=None):
+        out = self.model.prefill(self.params, {"tokens": jnp.asarray(tokens)},
+                                 cache_len=cache_len)
+        return _np_tree(out)
+
+    def decode(self, token, caches, pos):
+        out = self.model.decode(self.params, jnp.asarray(token), _jnp_tree(caches),
+                                jnp.asarray(pos, jnp.int32))
+        return _np_tree(out)
+
+    def engine(self, requests, retrieval=None, **kw):
+        """The reference's ServeEngine over ``requests`` (dicts of Request
+        fields): their outputs."""
+        from repro.serve import Request, ServeEngine
+
+        eng = ServeEngine(self.model, self.params, retrieval=retrieval, **kw)
+        reqs = [Request(**r) for r in requests]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [r.output for r in reqs]
+
+    def datastore(self, batches, seed: int, **kw):
+        """The reference's ``build_datastore`` over ``batches``."""
+        from repro.serve import build_datastore
+
+        return build_datastore(self.model, self.params, batches, jax.random.key(seed), **kw)
+
+    def retrieval(self, ds, r0: float, steps: int):
+        from repro.serve import RetrievalLM
+
+        return RetrievalLM(self.model, ds, r0=r0, steps=steps)
+
+
+class ref_chunked_threshold:
+    """Inside the block the reference's attention takes its KV-chunked path
+    from ``value`` keys on."""
+
+    def __init__(self, value: int):
+        self.value = value
+
+    def __enter__(self):
+        from repro.models import attention
+
+        self._orig = attention.CHUNKED_THRESHOLD
+        attention.CHUNKED_THRESHOLD = self.value
+        return self
+
+    def __exit__(self, *exc):
+        from repro.models import attention
+
+        attention.CHUNKED_THRESHOLD = self._orig
+        return False
+
+
+def ref_kv_chunked_context(q, k, v, *, causal, window, ck):
+    from repro.models.attention import _kv_chunked_context
+
+    return np.asarray(_kv_chunked_context(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=causal, window=window, ck=ck))
+
+
+def ref_token_batch(vocab: int, seq_len: int, batch: int, seed: int, step: int):
+    """``make_batch_fn(SyntheticTokens(...))(step)`` of the reference."""
+    from repro.data.pipeline import SyntheticTokens, make_batch_fn
+
+    return make_batch_fn(SyntheticTokens(vocab, seq_len, batch, seed=seed))(step)
+
+
+def ref_knn_probs(ds, queries, vocab: int, r0: float, steps: int):
+    """The reference's ``knn_probs`` and ``Datastore.search`` on ``ds``."""
+    from repro.serve import knn_probs
+
+    q = jnp.asarray(queries)
+    d, i = ds.search(q, r0=r0, steps=steps)
+    return (np.asarray(knn_probs(ds, q, vocab, r0=r0, steps=steps)), np.asarray(d),
+            np.asarray(i))

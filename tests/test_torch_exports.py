@@ -22,8 +22,7 @@ from repro_torch.data import make_uniform, paper_dataset_specs  # noqa: E402
 
 # names of modules not yet ported, by the ROADMAP item that ports them
 WAITING = {
-    "core": {"FBLSH", "MQIndex", "C2Index"},  # A16: baselines
-    "core.baselines": {"FBLSH", "MQIndex", "C2Index"},  # A16
+    "models.ffn": {"moe_params", "moe_ffn"},  # A17: the MoE FFN
 }
 
 PORTED = (
@@ -36,6 +35,7 @@ PORTED = (
     "obs", "obs.explain", "obs.metrics", "obs.slo", "obs.trace",
     "store", "store.cache", "store.collection", "store.lifecycle", "store.router",
     "store.service",
+    "configs", "data.pipeline", "models.ffn", "serve", "serve.engine", "serve.retrieval",
 )
 
 

@@ -28,6 +28,11 @@ from repro_torch.store import (  # noqa: E402
     restore_collection,
 )
 from repro_torch.core.serve_search import _gather_pool  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import C2Index, FBLSH, MQIndex  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serve import ServeEngine, build_datastore  # noqa: E402
 from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -98,6 +103,30 @@ with tempfile.TemporaryDirectory() as tmp:
 assert torch.equal(back.search(queries, k=5)[1], fleet.search(queries, k=5)[1])
 svc.attach(fleet)
 assert svc.serve("iso2", queries[:5].numpy())[2][0].engine == "torch"
+from repro_torch.core import C2Index, FBLSH, MQIndex
+for idx in (FBLSH.build(gen, data, K=4, L=2, w0=4.0, c=1.5, t=8, device="cpu"),
+            MQIndex.build(gen, data, device="cpu"), C2Index.build(gen, data, device="cpu")):
+    d, i = idx.search_batch(queries, k=5)
+    assert d.shape == i.shape == (48, 5)
+import numpy as np
+import repro_torch.configs, repro_torch.models, repro_torch.serve, repro_torch.launch
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+from repro_torch.models.registry import build_model
+from repro_torch.serve import Request, RetrievalLM, ServeEngine, build_datastore
+from repro_torch.launch.serve import main as serve_main
+cfg = get_config("yi-9b").smoke().scaled(n_layers=1)
+model = build_model(cfg)
+lm = model.init(gen, device="cpu")
+batches = [make_batch_fn(SyntheticTokens(cfg.vocab_size, 16, 2))(s) for s in range(2)]
+ds = build_datastore(model, lm, batches, gen, t=16, k=4, block_size=32, device="cpu")
+eng = ServeEngine(model, lm, slots=2, cache_len=32, device="cpu",
+                  retrieval=RetrievalLM(model, ds, r0=0.5, steps=4))
+reqs = [Request(uid=i, prompt=np.arange(3, dtype=np.int32), max_new_tokens=3) for i in range(3)]
+for r in reqs:
+    eng.submit(r)
+eng.run()
+assert all(r.done and len(r.output) == 3 for r in reqs)
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
@@ -139,6 +168,9 @@ def test_entry_points_need_a_device_without_cuda(tmp_path):
     params = DBLSHParams.derive(n=64, d=4, k=2, K=2, L=1, block_size=8)
     index = build(data, params, generator=gen, device="cpu")
     Collection.from_index("c", index).snapshot(str(tmp_path))
+    model = build_model(get_config("yi-9b").smoke().scaled(n_layers=1))
+    lm = model.init(gen, device="cpu")
+    batches = [make_batch_fn(SyntheticTokens(model.cfg.vocab_size, 8, 2))(0)]
     calls = (
         lambda: repro_torch.resolve_device(),
         lambda: make_clustered(gen, 16, 4),
@@ -158,6 +190,13 @@ def test_entry_points_need_a_device_without_cuda(tmp_path):
         lambda: open_collection("c", gen, data, params=params),
         lambda: open_collection("c", gen, data, params=params, mesh=None,
                                 max_points_per_shard=8),
+        lambda: FBLSH.build(gen, data, K=2, L=1, w0=4.0, c=1.5),
+        lambda: MQIndex.build(gen, data),
+        lambda: C2Index.build(gen, data),
+        lambda: model.init(gen),
+        lambda: model.init_cache(1, 8),
+        lambda: build_datastore(model, lm, batches, gen),
+        lambda: ServeEngine(model, lm),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -681,6 +681,22 @@ def test_fused_kernels_launch_shapes(cuda, mode, Q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["norm", "exact"])
+@pytest.mark.parametrize("K", [10, 3077])
+@pytest.mark.parametrize("Q", [1, 4, 64])
+def test_fused_kernels_at_lm_width(cuda, mode, K, Q):
+    """The kNN-LM datastore's width: Yi-9B's hidden states (d = 4096), at
+    K = 10 and at the K = 3077, L = 2, M = 5, B = 64 derived for 262,144
+    keys, steps 6, ks = 8, Q = 1, the serving engine's 4 slots and 64: a
+    staged x row is 16 KB and a projection row 12 KB, so a stage holds a
+    few rows; bit-equal to the twin on integer inputs."""
+    args, n = _int_window(Q + K, Q, 2, 5, 8, 64, K, 4096, 6)
+    _fused_bits("window", args, n, mode, 8, cuda, M=5)
+    args, n = _int_cand(Q + K + 1, Q, 2, 320, K, 4096, 6)
+    _fused_bits("cand", args, n, mode, 8, cuda)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", VERIFY_CAND_SHAPES)
 def test_candidate_verify_kernel_matches_twin(cuda, shape):
     Q, C, K, d, k = shape

@@ -28,7 +28,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  tiles in fp32 and bf16 (rtol 1e-4, atol 1e-4 x d), on
                  bases not 16-byte aligned (bit-equal to the aligned call),
                  and bit-equal on integer inputs; B1/B2 at the kNN-LM
-                 datastore's width (d = 4096, K = 10 and 3077, Q = 1/4/64)
+                 datastores' widths (d = 4096, K = 10 and 3077, Q = 1/4/64;
+                 d = 2048, K = 2821 and d = 7168, K = 2308, Q = 4/64)
                  bit-equal to the twin on integer inputs;
 3. main        — the repo's large search workload (BENCH_search_hotpath_large:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
@@ -225,9 +226,38 @@ Phases, each printing a line (with its seconds) when it passes:
                  recall@8 and the overall ratio of the datastore, decode step
                  ms p50/p99, tokens/s and the retrieval share per run, the
                  kernels' times at this shape, the per-layer weight cast's
-                 cost and the peak memory.
+                 cost and the peak memory;
+18. mamba       — the same kNN-LM serving (``knnlm_phase(tag="mamba")``) with
+                 mamba2-1.3b at its full width and depth (48 layers, d_model
+                 2048, 64 SSM heads of 64, state 128, chunk 64, vocab 50280
+                 tied; fp32 weights, bf16 compute), a datastore of 16 batches
+                 (131,072 keys at d = 2048), every gate of phase 17, and layer
+                 0's chunked ``ssm_forward`` over 256 tokens equal to 256
+                 ``ssm_decode`` steps in fp32 (SSD_TOL); records
+                 ``<wrapper>@mamba``;
+19. arctic      — arctic-480b at its published width (d_model 7168, 56/8 heads
+                 of 128, 128 experts of d_ff 4864, top-2, dense residual,
+                 vocab 32000, bf16 weights), 2 of its 35 layers: B1/B2's
+                 shared-memory plan at d = 7168 printed first; layer 0's
+                 ``moe_ffn`` on the path's inputs (a prefill of 8 x 1024
+                 tokens at capacity factor 1.25 and 0.25, a decode step at 4
+                 slots) against ``moe_oracle`` (the same experts and kept
+                 assignments, outputs within MOE_TOL of the float32 oracle,
+                 the load balance); prefill vs decode in bf16 at a dropless
+                 capacity; 8 requests on 4 slots without retrieval and
+                 through B2 and B1 from a datastore of 4 batches (32,768 keys
+                 at d = 7168); records ``<wrapper>@arctic``;
+20. hymba       — hymba-1.5b at its published width and depth (32 layers,
+                 d_model 1600, 25/5 heads and 25 SSM heads of 64, state 16,
+                 window 1024, global layers 0/15/31) on the batch path: a
+                 prefill of 4 x 1100 tokens into per-layer caches of 1200
+                 slots (windowed layers' rings equal to the prompt's last
+                 1024 positions, global layers' caches to all of them), prefill
+                 vs decode across the window's edge in fp32 and bf16, and 64
+                 greedy decode steps (step ms p50/p99).
 
-Any failure raises, and the run exits non-zero.  The last three lines are
+Each of phases 17-20 frees its model before the next starts and prints
+its peak memory.  Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
 """
@@ -237,6 +267,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import re
 import shutil
 import statistics
@@ -294,10 +325,7 @@ BASELINES = {  # phase 16: benchmarks/common.py:97-109's settings (class, build,
     "MQ(PM-LSH)": ("MQIndex", dict(m=15, beta=0.08), {}),
     "C2(QALSH)": ("C2Index", dict(m=40, w=2.0), {}),
 }
-# phase 17: kNN-LM serving with a full-width Yi-9B
-LM_ARCH = "yi-9b"
-LM_WIDTH = (48, 4096, 32, 4, 128, 11008, 64000)  # layers, d_model, heads, kv, hd, d_ff, vocab
-LM_SEQ, LM_BATCH, LM_BATCHES = 1024, 8, 32  # the corpus: 262,144 (hidden, next token) pairs
+LM_SEQ, LM_BATCH = 1024, 8
 LM_DS = dict(c=1.5, t=64, k=8, temperature=10.0, lam=0.25)
 LM_STEPS, LM_HELD, LM_CHECK_T = 6, 256, 64
 LM_SLOTS, LM_CACHE, LM_REQUESTS, LM_NEW = 4, 256, 16, 32
@@ -305,6 +333,39 @@ LM_FP32_TOL = 2e-3  # prefill vs decode in fp32: tests/test_arch_smoke.py's tole
 # the same in bf16: logits of std ~1 after 48 layers of bf16 rounding (0.082
 # measured at the full width, NVIDIA H100 80GB HBM3, 700 W)
 LM_BF16_TOL = 0.125
+# the same for the SSM family: Mamba2-1.3B's bf16 prefill of 64 tokens is
+# itself 0.419 from its fp32 one, and its decode 0.1406 from the bf16
+# prefill (0.0859 with the SSD mixer in fp32: the rest is the bf16 matrix
+# products of 48 layers; tools/ssm_bf16_drift.py, NVIDIA H100 80GB HBM3,
+# 700 W); the reference's own bf16 numbers are not measured
+SSM_BF16_TOL = 0.25
+# phases 17-18: kNN-LM serving; tag -> (arch, its published width (config
+# fields), corpus batches of LM_BATCH x LM_SEQ tokens, the bf16 prefill vs
+# decode tolerance)
+LM_RUNS = {
+    "knnlm": ("yi-9b", dict(n_layers=48, d_model=4096, n_heads=32, n_kv_heads=4, hd=128,
+                            d_ff=11008, vocab_size=64000), 32, LM_BF16_TOL),  # 262,144 keys
+    "mamba": ("mamba2-1.3b", dict(n_layers=48, d_model=2048, ssm_heads=64, ssm_head_dim=64,
+                                  ssm_state=128, ssm_chunk=64, vocab_size=50280,
+                                  tie_embeddings=True), 16, SSM_BF16_TOL),  # 131,072 keys
+}
+SSD_T, SSD_TOL = 256, 2e-4  # phase 18: chunked SSD vs decode steps (tests/test_ssm.py's tol)
+# phase 19: Arctic-480B at its published width, 2 of its 35 layers (35 are
+# ~953 GB in bf16), a datastore of 4 batches (32,768 keys at d = 7168)
+ARCTIC = ("arctic-480b", dict(d_model=7168, n_heads=56, n_kv_heads=8, hd=128, d_ff=4864,
+                              n_experts=128, experts_per_token=2, dense_residual=True,
+                              vocab_size=32000, param_dtype="bfloat16"), 2, 4)
+ARCTIC_REQUESTS = 8
+MOE_LOW_FACTOR = 0.25  # a capacity that drops assignments (32 of a prefill's 128 a expert)
+# moe_ffn (bf16 products, rounded at each step) against the float32 oracle:
+# |err| <= MOE_TOL x max |oracle|
+MOE_TOL = 0.03
+# phase 20: Hymba-1.5B at its published width and depth, on the batch path
+HYMBA = ("hymba-1.5b", dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5, hd=64,
+                            d_ff=5504, ssm_heads=25, ssm_head_dim=64, ssm_state=16,
+                            ssm_chunk=128, sliding_window=1024, global_layers=(0, 15, 31),
+                            vocab_size=32001, tie_embeddings=True))
+HY_BATCH, HY_PROMPT, HY_CACHE, HY_STEPS = 4, 1100, 1200, 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1374,7 +1435,7 @@ def baselines_phase(torch, dev, card, data, Q64, gt_sets, index, kw, phase_s) ->
           f"{json.dumps(table)} ({phase_s():.1f} s)", flush=True)
 
 
-# --------------------------------------------- 17. kNN-LM serving, Yi-9B
+# ----------------------------- 17-20. the LM: kNN-LM serving and the families
 
 
 def inline_index(torch, index):
@@ -1392,54 +1453,59 @@ def inline_index(torch, index):
                                params=dataclasses.replace(index.params, inline_vectors=True))
 
 
-def lm_requests(np, vocab: int):
-    """Phase 17's requests: prompts of 32-128 tokens, LM_NEW new tokens
+def lm_requests(np, vocab: int, n: int):
+    """The LM phases' requests: prompts of 32-128 tokens, LM_NEW new tokens
     each, even uids greedy, odd ones at temperature 0.8 with top-k 40."""
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(32, 129, LM_REQUESTS)
+    lens = rng.integers(32, 129, n)
     return [Request(uid=i, prompt=rng.integers(0, vocab, int(n_)).astype(np.int32),
                     max_new_tokens=LM_NEW, temperature=0.0 if i % 2 == 0 else 0.8, top_k=40)
             for i, n_ in enumerate(lens)]
 
 
-def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s) -> None:
-    """Phase 17: kNN-LM serving with a full-width Yi-9B (random weights) and
-    a DB-LSH datastore of its own hidden states, through the torch engine
-    and the fused kernels B2 (kernel) and B1 (inline)."""
+def lm_model(torch, dev, tag: str, arch: str, width: dict, n_layers: int = 0):
+    """``arch`` at its published ``width`` (the config's fields), depth cut
+    to ``n_layers`` where given, with random weights drawn on the card:
+    (cfg, model, params)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import brute_force
-    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
     from repro_torch.models.registry import build_model, param_count
-    from repro_torch.models.transformer import logits_fn
-    from repro_torch.serve import (Datastore, Request, RetrievalLM, ServeEngine, build_datastore,
-                                   knn_probs)
-    from repro_torch.serve.retrieval import interpolate
-    from repro_torch.store import Collection
 
-    torch.cuda.reset_peak_memory_stats()
-    print(f"[knnlm] held on the card before the phase: "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.scaled(n_layers=n_layers)
+    check(all(getattr(cfg, k) == v for k, v in width.items()),
+          f"{arch} is not at its published width {width}")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    check(len(params.blocks) == cfg.n_layers
+          and tuple(params.embed.shape) == (cfg.padded_vocab, cfg.d_model),
+          f"{arch}: the drawn model is not the config's")
     n_params = param_count(params)
-    check((len(params.blocks), params.embed.shape[1], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-           cfg.d_ff, params.embed.shape[0]) == LM_WIDTH,
-          f"the model is not {LM_ARCH} at its full width")
-    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
-    print(f"[knnlm] {LM_ARCH}: {n_params:,} parameters, "
-          f"{n_params * 4 / 1e9:.1f} GB in fp32, drawn in {init_s:.1f} s; compute in "
-          f"{cfg.dtype} (each layer's weights cast as it runs)", flush=True)
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers, {n_params:,} parameters, "
+          f"{nbytes / 1e9:.1f} GB (weights in {cfg.param_dtype}), drawn in {init_s:.1f} s "
+          f"(peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB); compute in {cfg.dtype}",
+          flush=True)
+    return cfg, model, params
 
-    # the datastore: a teacher-forced pass over the synthetic corpus
+
+def lm_datastore(torch, np, dev, tag, model, params, n_batches: int):
+    """The datastore of a teacher-forced pass over ``n_batches`` synthetic
+    batches, held-out states (another batch, every 32nd position), their
+    true neighbours and r0 from the median k-th NN distance."""
+    from repro_torch.core import brute_force
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.serve import build_datastore
+
+    cfg = model.cfg
     src = SyntheticTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=SEED)
     batch_fn = make_batch_fn(src)
-    batches = [batch_fn(s) for s in range(LM_BATCHES)]
+    batches = [batch_fn(s) for s in range(n_batches)]
     fwd = {"s": 0.0}
 
     def timed_loss(p, b, mesh=None):
@@ -1456,21 +1522,19 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
     torch.cuda.synchronize()
     ds_s = time.perf_counter() - t0
     keys = ds.index.data
-    n_keys = LM_BATCHES * LM_BATCH * LM_SEQ
-    check(tuple(keys.shape) == (n_keys, LM_WIDTH[1]) and ds.values.shape[0] == n_keys,
+    n_keys = n_batches * LM_BATCH * LM_SEQ
+    check(tuple(keys.shape) == (n_keys, cfg.d_model) and ds.values.shape[0] == n_keys,
           f"datastore holds {tuple(keys.shape)}")
     check(bool(torch.isfinite(keys).all()), "non-finite hidden states in the datastore")
     p_lsh = ds.index.params
-    print(f"[knnlm] datastore: {n_keys:,} keys of d = {keys.shape[1]} ({keys.numel() * 4 / 1e9:.2f}"
+    print(f"[{tag}] datastore: {n_keys:,} keys of d = {keys.shape[1]} ({keys.numel() * 4 / 1e9:.2f}"
           f" GB) in {ds_s:.1f} s: teacher-forced pass {fwd['s']:.1f} s "
           f"({n_keys / fwd['s']:,.0f} tokens/s), index build {ds_s - fwd['s']:.1f} s; derived "
           f"K = {p_lsh.K}, L = {p_lsh.L}, B = {p_lsh.block_size}, M = {p_lsh.max_blocks}, "
           f"index {ds.index.memory_bytes() / 1e9:.2f} GB", flush=True)
     del batches
-
-    # held-out states (another batch, every 32nd position) and r0 from them
     with torch.inference_mode():
-        hb = model.loss(params, batch_fn(LM_BATCHES))[1]["hidden"]
+        hb = model.loss(params, batch_fn(n_batches))[1]["hidden"]
     held = hb[:, ::LM_SEQ * LM_BATCH // LM_HELD].reshape(-1, hb.shape[-1]).float().contiguous()
     del hb
     check(held.shape[0] == LM_HELD, f"{held.shape[0]} held-out states")
@@ -1479,24 +1543,212 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
     med = float(bd[:, -1].median())
     r0 = med / LM_DS["c"] ** (LM_STEPS - 1)
     norms = keys.square().sum(-1).sqrt()
-    print(f"[knnlm] hidden-state norms {float(norms.min()):.1f}-{float(norms.max()):.1f}; "
+    print(f"[{tag}] hidden-state norms {float(norms.min()):.1f}-{float(norms.max()):.1f}; "
           f"median 8th-NN distance of {LM_HELD} held-out states {med:.3f} -> r0 = {r0:.4f} "
           f"(r0 c^{LM_STEPS - 1} covers it)", flush=True)
+    return ds, batch_fn, held, bd, truth, r0
 
-    # the same keys behind B2 (kernel) and, where the card has the room, B1
-    # (inline: a vector copy per table)
+
+def lm_stores(torch, tag, ds, headroom: int = 8 << 30):
+    """The same keys behind torch, B2 (kernel) and, where the card has the
+    room (the copy and ``headroom`` bytes), B1 (inline: a vector copy per
+    table)."""
+    from repro_torch.serve import Datastore
+    from repro_torch.store import Collection
+
     stores = {"torch": ds, "kernel": Datastore(Collection.from_index(
-        "knnlm-kernel", ds.index, payload=ds.values, engine="kernel"),
+        f"{tag}-kernel", ds.index, payload=ds.values, engine="kernel"),
         ds.temperature, ds.lam, ds.k)}
-    need = p_lsh.L * keys.numel() * 4
+    need = ds.index.params.L * ds.index.data.numel() * 4
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
-    if free > need + (8 << 30):
+    if free > need + headroom:
         stores["inline"] = Datastore(Collection.from_index(
-            "knnlm-inline", inline_index(torch, ds.index), payload=ds.values, engine="inline"),
-            ds.temperature, ds.lam, ds.k)
-    print(f"[knnlm] datastores: {sorted(stores)} (inline needs {need / 1e9:.1f} GB, "
+            f"{tag}-inline", inline_index(torch, ds.index), payload=ds.values,
+            engine="inline"), ds.temperature, ds.lam, ds.k)
+    print(f"[{tag}] datastores: {sorted(stores)} (inline needs {need / 1e9:.1f} GB, "
           f"{free / 1e9:.1f} GB free)", flush=True)
+    return stores
+
+
+def serve_requests(torch, np, kernels, model, params, store, r0, n_requests: int):
+    """``n_requests`` of ``lm_requests`` through a ServeEngine on LM_SLOTS
+    slots, without retrieval (``store`` None) or through ``store``; launch
+    counts reset just before the run: (requests, numbers, launches)."""
+    from repro_torch.serve import RetrievalLM, ServeEngine
+
+    cfg = model.cfg
+    eng = ServeEngine(model, params, slots=LM_SLOTS, cache_len=LM_CACHE,
+                      retrieval=None if store is None else RetrievalLM(
+                          model, store, r0=r0, steps=LM_STEPS))
+    steps_ms, search_ms = [], []
+    inner = eng._step
+
+    def step(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*a)
+        check(bool(torch.isfinite(out[0]).all()), "non-finite decode log-probabilities")
+        steps_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._step = step
+    if store is not None:
+        search = store.search
+
+        def timed_search(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = search(*a, **k)
+            torch.cuda.synchronize()
+            search_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        store.search = timed_search
+    reqs = lm_requests(np, cfg.vocab_size, n_requests)
+    for r in reqs:
+        eng.submit(r)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    n_steps = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = dict(kernels.launches)
+    if store is not None:
+        del store.search
+    check(all(r.done and len(r.output) == LM_NEW for r in reqs),
+          "a request ended without its max_new_tokens")
+    check(all(0 <= tok < cfg.padded_vocab for r in reqs for tok in r.output),
+          "a token outside the vocabulary")
+    return reqs, {"engine_steps": n_steps, "wall_s": round(wall, 3),
+                  "tokens_per_s": round(n_requests * LM_NEW / wall, 2),
+                  "step_ms_p50": round(float(np.percentile(steps_ms, 50)), 3),
+                  "step_ms_p99": round(float(np.percentile(steps_ms, 99)), 3),
+                  "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4)
+                  if search_ms else 0.0}, {k: launched[k] for k in FUSED}
+
+
+def prefill_decode_gate(torch, tag, models, params, prompt, cache_len):
+    """Prefill of T tokens against prefill of T - 1 and one decode, for each
+    (model, tolerance): the last logits' largest difference by dtype."""
+    gaps = {}
+    for m, tol in models:
+        with torch.inference_mode():
+            full = m.prefill(params, {"tokens": prompt}, cache_len=cache_len)[0].float()
+            _, _, c = m.prefill(params, {"tokens": prompt[:, :-1]}, cache_len=cache_len)
+            dec = m.decode(params, prompt[:, -1], c, prompt.shape[1] - 1)[0].float()
+        err = float((dec - full).abs().max())
+        gaps[m.cfg.dtype] = round(err, 6)
+        check(bool(torch.allclose(dec, full, rtol=tol, atol=tol)),
+              f"{tag} {m.cfg.dtype}: decode after prefill differs from prefill by {err} "
+              f"(tol {tol})")
+    return gaps, float(full.std())
+
+
+def path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores, h4, r0,
+                        path_launches) -> None:
+    """B1/B2 at a datastore path's shapes (the serving engine's slots),
+    against their twins, timed, and recorded as ``<wrapper>@<tag>``."""
+    for name, engine in (("fused_cand_search", "kernel"), ("fused_window_search", "inline")):
+        if engine not in stores:
+            continue
+        a, k = capture_calls(kernels, wrappers, name,
+                             lambda: stores[engine].search(h4, r0=r0, steps=LM_STEPS))
+        nrm, q = (a[4], a[7]) if name == "fused_window_search" else (a[2], a[6])
+        sc = float(nrm[torch.isfinite(nrm)].max()) + float((q * q).sum(-1).max())
+        err = 0.0
+        for mode, tol in (("norm", dict(atol=NORM_ATOL * sc)),
+                          ("exact", dict(atol=1e-5, rtol=q.shape[-1] * 2.0 ** -24))):
+            kk = dict(k, mode=mode)
+            err = max(err, bins_err(torch, wrappers[name](*a, **kk), twins[name](*a, **kk),
+                                    edge_ties=True, **tol))
+        ms = cuda_ms(torch, lambda: wrappers[name](*a, **k), iters=50)
+        plain_ms = cuda_ms(torch, lambda: twins[name](*a, **k), iters=5)
+        dev_us, dev_how = device_us(torch, lambda: wrappers[name](*a, **k), f"{name}_kernel")
+        in_bytes, out_bytes, ops, ops_ms = work(torch, name, a, k)
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        records.append({
+            "name": f"{name}@{tag}", "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": path_launches.get(engine, {}).get(name, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by, "library_ms": None,
+        })
+        K = (a[6] if name == "fused_window_search" else a[5]).shape[-1]
+        print(f"[{tag}] {name}@{tag}: Q={q.shape[0]}, d={q.shape[-1]}, K={K}: median {ms:.4f} "
+              f"ms/launch (device {dev_us:.1f} us by {dev_how}; twin {plain_ms:.3f} ms), bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
+              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop); max |err| vs "
+              f"twin {err:.3g}", flush=True)
+
+
+def free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssd_gate(torch, params, cfg, dev, tag) -> None:
+    """One full-width layer's chunked ``ssm_forward`` over SSD_T tokens
+    against SSD_T ``ssm_decode`` steps, in float32 (tests/test_ssm.py's
+    check at this width), on the layer's own input."""
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.transformer import _layer_params
+
+    bp = _layer_params(params.blocks[0], torch.float32)
+    toks = torch.as_tensor(make_batch_fn(SyntheticTokens(cfg.vocab_size, SSD_T, 1, seed=SEED))(
+        0)["tokens"], device=dev).long()
+    with torch.inference_mode():
+        x = rmsnorm(params.embed[toks].float(), bp["norm1"], cfg.norm_eps)
+        y, s, tail = ssm_mod.ssm_forward(x, bp["ssm"], cfg, chunk=cfg.ssm_chunk)
+        _, H, P, N, conv_dim, _ = ssm_mod.ssm_dims(cfg)
+        state = torch.zeros((1, H, N, P), device=dev)
+        conv = torch.zeros((1, ssm_mod.CONV_W - 1, conv_dim), device=dev)
+        ys = []
+        for t in range(SSD_T):
+            y1, state, conv = ssm_mod.ssm_decode(x[:, t:t + 1], bp["ssm"], cfg, state, conv)
+            ys.append(y1)
+        y_seq = torch.cat(ys, dim=1)
+    err_y = float((y - y_seq).abs().max())
+    err_s = float((s - state).abs().max())
+    check(bool(torch.allclose(y, y_seq, rtol=SSD_TOL, atol=SSD_TOL))
+          and bool(torch.allclose(s, state, rtol=SSD_TOL, atol=SSD_TOL))
+          and bool(torch.allclose(tail, conv, rtol=SSD_TOL, atol=SSD_TOL)),
+          f"{tag}: chunked SSD differs from {SSD_T} decode steps by {err_y} (y), {err_s} "
+          f"(state)")
+    print(f"[{tag}] ok: layer 0's ssm_forward over {SSD_T} tokens at chunk {cfg.ssm_chunk} == "
+          f"{SSD_T} ssm_decode steps in fp32 within rtol = atol = {SSD_TOL}: max |dy| {err_y:.3g}"
+          f" (|y| max {float(y.abs().max()):.3f}), max |dstate| {err_s:.3g}, conv tails within the same",
+          flush=True)
+
+
+def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s,
+                tag: str = "knnlm") -> None:
+    """Phases 17 (``knnlm``: Yi-9B) and 18 (``mamba``: Mamba2-1.3B): kNN-LM
+    serving with a full-width model (random weights) and a DB-LSH datastore
+    of its own hidden states, through the torch engine and the fused
+    kernels B2 (kernel) and B1 (inline)."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import logits_fn
+    from repro_torch.serve import Request, ServeEngine, knn_probs
+    from repro_torch.serve.retrieval import interpolate
+
+    arch, width, n_batches, bf16_tol = LM_RUNS[tag]
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[{tag}] held on the card before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    cfg, model, params = lm_model(torch, dev, tag, arch, width)
+    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
+    if cfg.family == "ssm":
+        ssd_gate(torch, params, cfg, dev, tag)
+
+    ds, batch_fn, held, bd, truth, r0 = lm_datastore(torch, np, dev, tag, model, params,
+                                                     n_batches)
+    keys = ds.index.data
+    stores = lm_stores(torch, tag, ds)
 
     # gates 5-6 on the held-out states, and what they find
     scale = norm_scale(torch, keys, held)
@@ -1526,7 +1778,7 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
             summary[name]["near_ties"] = norm_edge_ties(torch, found[name], found["torch"],
                                                          atol)
     check(summary["torch"]["all_k_found"] > 0, "no held-out state found its k neighbours")
-    print(f"[knnlm] ok: held-out searches (r0 {r0:.4f}, steps {LM_STEPS}, k {LM_DS['k']}): "
+    print(f"[{tag}] ok: held-out searches (r0 {r0:.4f}, steps {LM_STEPS}, k {LM_DS['k']}): "
           f"kernel/inline id sets equal torch's up to near-ties, distances equal the keys' "
           f"(norm form, atol {atol:.4f}); {json.dumps(summary)}", flush=True)
 
@@ -1546,81 +1798,25 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
     # gate 1: prefill of T against prefill of T - 1 and one decode, in fp32
     # (the reference's tolerance) and in the compute dtype
     prompt = torch.as_tensor(batch_fn(0)["tokens"][:1, :LM_CHECK_T], device=dev)
-    gaps = {}
-    for m, tol in ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL), (model, LM_BF16_TOL)):
-        with torch.inference_mode():
-            full = m.prefill(params, {"tokens": prompt}, cache_len=LM_CHECK_T)[0].float()
-            _, _, c = m.prefill(params, {"tokens": prompt[:, :-1]}, cache_len=LM_CHECK_T)
-            dec = m.decode(params, prompt[:, -1], c, LM_CHECK_T - 1)[0].float()
-        err = float((dec - full).abs().max())
-        gaps[m.cfg.dtype] = round(err, 6)
-        check(bool(torch.allclose(dec, full, rtol=tol, atol=tol)),
-              f"{m.cfg.dtype}: decode after prefill differs from prefill by {err} (tol {tol})")
-    print(f"[knnlm] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode, "
+    gaps, std = prefill_decode_gate(
+        torch, tag, ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL),
+                     (model, bf16_tol)), params, prompt, LM_CHECK_T)
+    print(f"[{tag}] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode, "
           f"max |dlogit| {json.dumps(gaps)} (tol fp32 {LM_FP32_TOL}, {cfg.dtype} "
-          f"{LM_BF16_TOL}); logits std {float(full.std()):.3f}", flush=True)
+          f"{bf16_tol}); logits std {std:.3f}", flush=True)
 
-    # serving: the same 16 requests without retrieval and through each datastore
-    def serve(store):
-        eng = ServeEngine(model, params, slots=LM_SLOTS, cache_len=LM_CACHE,
-                          retrieval=None if store is None else RetrievalLM(
-                              model, store, r0=r0, steps=LM_STEPS))
-        steps_ms, search_ms = [], []
-        inner = eng._step
-
-        def step(*a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = inner(*a)
-            check(bool(torch.isfinite(out[0]).all()), "non-finite decode log-probabilities")
-            steps_ms.append((time.perf_counter() - t) * 1e3)
-            return out
-
-        eng._step = step
-        if store is not None:
-            search = store.search
-
-            def timed_search(*a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = search(*a, **k)
-                torch.cuda.synchronize()
-                search_ms.append((time.perf_counter() - t) * 1e3)
-                return out
-
-            store.search = timed_search
-        reqs = lm_requests(np, cfg.vocab_size)
-        for r in reqs:
-            eng.submit(r)
-        kernels.reset_launches()
-        t = time.perf_counter()
-        n_steps = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launched = dict(kernels.launches)
-        if store is not None:
-            del store.search
-        check(all(r.done and len(r.output) == LM_NEW for r in reqs),
-              "a request ended without its max_new_tokens")
-        check(all(0 <= tok < cfg.padded_vocab for r in reqs for tok in r.output),
-              "a token outside the vocabulary")
-        return reqs, {"engine_steps": n_steps, "wall_s": round(wall, 3),
-                      "tokens_per_s": round(LM_REQUESTS * LM_NEW / wall, 2),
-                      "step_ms_p50": round(float(np.percentile(steps_ms, 50)), 3),
-                      "step_ms_p99": round(float(np.percentile(steps_ms, 99)), 3),
-                      "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4)
-                      if search_ms else 0.0}, launched
-
+    # serving: the same requests without retrieval and through each datastore
     served, runs, path_launches = {}, {}, {}
     for name in ("none", *stores):
-        served[name], runs[name], launched = serve(None if name == "none" else stores[name])
-        path_launches[name] = {k: launched[k] for k in FUSED}
+        served[name], runs[name], path_launches[name] = serve_requests(
+            torch, np, kernels, model, params, None if name == "none" else stores[name], r0,
+            LM_REQUESTS)
     check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
     check(not any(path_launches["torch"].values()), "the torch datastore launched a kernel")
     if "inline" in stores:
         check(path_launches["inline"]["fused_window_search"] > 0,
               "the inline datastore never ran B1")
-    print(f"[knnlm] ok: {LM_REQUESTS} requests x {LM_NEW} new tokens each served on "
+    print(f"[{tag}] ok: {LM_REQUESTS} requests x {LM_NEW} new tokens each served on "
           f"{LM_SLOTS} slots (cache {LM_CACHE}), half greedy, half at temperature 0.8 / top-k "
           f"40; {card}: {json.dumps(runs)}; launches {json.dumps(path_launches)}", flush=True)
 
@@ -1648,48 +1844,17 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
             if a_ != b_:
                 top2 = torch.topk(logs[j], 2).values
                 gap = float(top2[0] - top2[1])
-                check(gap <= LM_BF16_TOL, f"request {req.uid}: token {j} differs alone "
+                check(gap <= bf16_tol, f"request {req.uid}: token {j} differs alone "
                       f"({a_}) and shared ({b_}) at a top-two gap of {gap}")
                 parted.append((req.uid, j, round(gap, 4)))
                 break
             compared += 1
-    print(f"[knnlm] ok: two greedy requests decoded alone equal the shared batch over "
+    print(f"[{tag}] ok: two greedy requests decoded alone equal the shared batch over "
           f"{compared} tokens; parted at near-ties (uid, token, top-two gap <= "
-          f"{LM_BF16_TOL}): {parted}", flush=True)
+          f"{bf16_tol}): {parted}", flush=True)
 
-    # the kernels at this path's shapes (d = 4096, the serving engine's
-    # slots), against their twins, and their times
-    h4 = held[:LM_SLOTS].contiguous()
-    for name, engine in (("fused_cand_search", "kernel"), ("fused_window_search", "inline")):
-        if engine not in stores:
-            continue
-        a, k = capture_calls(kernels, wrappers, name,
-                             lambda: stores[engine].search(h4, r0=r0, steps=LM_STEPS))
-        nrm, q = (a[4], a[7]) if name == "fused_window_search" else (a[2], a[6])
-        sc = float(nrm[torch.isfinite(nrm)].max()) + float((q * q).sum(-1).max())
-        err = 0.0
-        for mode, tol in (("norm", dict(atol=NORM_ATOL * sc)),
-                          ("exact", dict(atol=1e-5, rtol=q.shape[-1] * 2.0 ** -24))):
-            kk = dict(k, mode=mode)
-            err = max(err, bins_err(torch, wrappers[name](*a, **kk), twins[name](*a, **kk),
-                                    edge_ties=True, **tol))
-        ms = cuda_ms(torch, lambda: wrappers[name](*a, **k), iters=50)
-        plain_ms = cuda_ms(torch, lambda: twins[name](*a, **k), iters=5)
-        dev_us, dev_how = device_us(torch, lambda: wrappers[name](*a, **k), f"{name}_kernel")
-        in_bytes, out_bytes, ops, ops_ms = work(torch, name, a, k)
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        records.append({
-            "name": f"{name}@knnlm", "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": path_launches[engine][name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by, "library_ms": None,
-        })
-        K = (a[6] if name == "fused_window_search" else a[5]).shape[-1]
-        print(f"[knnlm] {name}@knnlm: Q={q.shape[0]}, d={q.shape[-1]}, K={K}: median {ms:.4f} ms/launch (device {dev_us:.1f} us by {dev_how}; twin "
-              f"{plain_ms:.3f} ms), bound {max(bytes_ms, ops_ms) * 1e3:.2f} us by {bound_by} "
-              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop); max |err| vs "
-              f"twin {err:.3g}", flush=True)
+    path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores,
+                        held[:LM_SLOTS].contiguous(), r0, path_launches)
 
     # what casting each layer's weights to bf16 costs a decode step
     blocks = list(params.blocks)
@@ -1701,13 +1866,248 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
                     w.to(torch.bfloat16)
 
     cast_ms = cuda_ms(torch, cast_all, iters=3)
-    print(f"[knnlm] the per-layer weight cast (fp32 -> bf16, 48 layers) takes {cast_ms:.2f} ms "
-          f"of a decode step; a bf16 copy kept at load would cost "
+    print(f"[{tag}] the per-layer weight cast (fp32 -> bf16, {len(blocks)} layers) takes "
+          f"{cast_ms:.2f} ms of a decode step; a bf16 copy kept at load would cost "
           f"{sum(p.numel() for b in blocks for p in b.parameters() if p.dim() > 1) * 2 / 1e9:.1f}"
           f" GB; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
           f"({phase_s():.1f} s)", flush=True)
+    del stores, ds, params, blocks
+    free_card(torch)
+
+
+def capture_moe(ffn_mod, fn):
+    """Run ``fn`` with ``ffn_mod.moe_ffn`` wrapped: the (x, weights, out,
+    aux) of its first call (layer 0's MoE on the path ``fn`` drives)."""
+    calls = []
+    inner = ffn_mod.moe_ffn
+
+    def wrapped(x, p, cfg, *a, **k):
+        out = inner(x, p, cfg, *a, **k)
+        if not calls:
+            calls.append((x, p, *out))
+        return out
+
+    ffn_mod.moe_ffn = wrapped
+    try:
+        fn()
+    finally:
+        ffn_mod.moe_ffn = inner
+    return calls[0]
+
+
+def moe_oracle(torch, x, p, cfg):
+    """The MoE FFN written out: route each token to its top-k experts (probs
+    in float32, ties to the lower expert), keep an assignment when its rank
+    among the same expert's assignments in the flat (token, k) order is
+    below the capacity, and add w x the expert's SwiGLU on the token, from
+    the expert's own weights, in float32.  Returns (out (N, D) float32,
+    kept (N * k,), expert ids (N, k), load balance, capacity)."""
+    N, D = x.shape[0] * x.shape[1], x.shape[2]
+    E, k = cfg.n_experts, cfg.experts_per_token
+    xf = x.reshape(N, D)
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :k], ids[:, :k]
+    w = w / w.sum(-1, keepdim=True)
+    counts = torch.bincount(ids.reshape(-1), minlength=E).float()
+    lb = E * float((counts / N * probs.mean(0)).sum())
+    cap = max(4, math.ceil(N * k / E * cfg.moe_capacity_factor))
+    flat = ids.reshape(-1)
+    kept = torch.zeros(N * k, dtype=torch.bool, device=x.device)
+    out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        rows = torch.nonzero(flat == e)[:, 0][:cap]  # ascending flat order
+        if rows.numel() == 0:
+            continue
+        kept[rows] = True
+        tok = rows // k
+        xe = xf[tok].float()
+        h = torch.nn.functional.silu(xe @ p["w_gate"][e].float()) * (xe @ p["w_up"][e].float())
+        out.index_add_(0, tok, (h @ p["w_down"][e].float()) * w.reshape(-1)[rows, None])
+    return out, kept, ids, lb, cap
+
+
+def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s) -> None:
+    """Phase 19: Arctic-480B at its published width, depth cut to
+    ARCTIC_LAYERS layers (bf16 weights): the MoE FFN against
+    ``moe_oracle`` on the path's own inputs, prefill vs decode, and
+    requests served without retrieval and through B2 and B1."""
+    from repro_torch.core import DBLSHParams
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import _MAX_SMEM, _MODES
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models.registry import build_model
+
+    tag = "arctic"
+    arch, width, n_layers, n_batches = ARCTIC
+    torch.cuda.reset_peak_memory_stats()
+    # B1/B2's shared-memory plan at this width, before anything runs
+    p_lsh = DBLSHParams.derive(n=n_batches * LM_BATCH * LM_SEQ, d=width["d_model"],
+                               c=LM_DS["c"], t=LM_DS["t"], k=LM_DS["k"], block_size=64)
+    C = p_lsh.L * p_lsh.max_blocks * p_lsh.block_size
+    lib = _build.load()
+    smem = {f"{w}[{m}]": lib.fused_search_smem_bytes(_MODES.index(m), LM_STEPS, p_lsh.L,
+                                                     p_lsh.K, p_lsh.d, C, S)
+            for w, S in (("fused_window_search", p_lsh.L * p_lsh.max_blocks),
+                         ("fused_cand_search", 0)) for m in ("norm", "exact")}
+    print(f"[{tag}] fused_search_smem_bytes at d = {p_lsh.d}, K = {p_lsh.K}, L = {p_lsh.L}, "
+          f"C = {C}, steps = {LM_STEPS}: {json.dumps(smem)} (at most {_MAX_SMEM})", flush=True)
+    check(max(smem.values()) <= _MAX_SMEM, "B1/B2 cannot plan a stage at this width")
+
+    cfg, model, params = lm_model(torch, dev, tag, arch, width, n_layers)
+    check(all(p.dtype == torch.bfloat16 for p in params.parameters() if p.dim() > 1),
+          "weights not bf16")
+    E, k, D = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+
+    # the MoE FFN of layer 0 on the main path's inputs: a prefill of
+    # LM_BATCH x LM_SEQ tokens (the configured capacity, and MOE_LOW_FACTOR
+    # so that assignments are dropped) and a decode step of LM_SLOTS slots
+    toks = torch.as_tensor(make_batch_fn(SyntheticTokens(cfg.vocab_size, LM_SEQ, LM_BATCH,
+                                                         seed=SEED + 1))(0)["tokens"],
+                           device=dev)
+    cases = {}
+    with torch.inference_mode():
+        x, p, out, aux = capture_moe(ffn_mod, lambda: model.prefill(params, {"tokens": toks}))
+        cases["prefill"] = (x, p, out, aux, cfg)
+        low = cfg.scaled(moe_capacity_factor=MOE_LOW_FACTOR)
+        cases[f"prefill@{MOE_LOW_FACTOR}"] = (x, p, *ffn_mod.moe_ffn(x, p, low), low)
+        _, _, c = model.prefill(params, {"tokens": toks[:LM_SLOTS, :LM_CHECK_T]},
+                                cache_len=LM_CACHE)
+        cases["decode"] = (*capture_moe(ffn_mod, lambda: model.decode(
+            params, toks[:LM_SLOTS, LM_CHECK_T], c, LM_CHECK_T)), cfg)
+        del c
+        summary = {}
+        for name, (x_, p_, out_, aux_, cfg_) in cases.items():
+            want, kept, ids, lb, cap = moe_oracle(torch, x_, p_, cfg_)
+            xf = x_.reshape(-1, D)
+            _, ids_port = ffn_mod._top_k(torch.softmax(xf.float() @ p_["router"].float(), -1), k)
+            keep, _, flat = ffn_mod._dispatch(ids_port, capacity=cap, n_local=E,
+                                              first_eid=0)
+            kept_port = torch.zeros_like(kept)
+            kept_port[flat] = keep
+            check(torch.equal(ids_port, ids), f"{name}: the router's top-{k} differs")
+            check(torch.equal(kept_port, kept), f"{name}: kept assignments differ from the "
+                                                "oracle's")
+            err = float((out_.reshape(-1, D).float() - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= MOE_TOL * scale, f"{name}: moe_ffn off the oracle by {err} "
+                  f"(tol {MOE_TOL} x {scale})")
+            got_lb = float(aux_["load_balance"])
+            check(abs(got_lb - lb) <= 1e-5 * lb, f"{name}: load balance {got_lb} != {lb}")
+            summary[name] = {"tokens": xf.shape[0], "capacity": cap,
+                             "dropped": int((~kept).sum()), "max_abs_err": round(err, 5),
+                             "max_abs_out": round(scale, 4), "load_balance": round(lb, 5)}
+        del cases, x, p, out
+    check(summary[f"prefill@{MOE_LOW_FACTOR}"]["dropped"] > 0,
+          f"no assignment dropped at capacity factor {MOE_LOW_FACTOR}")
+    print(f"[{tag}] ok: layer 0's moe_ffn == moe_oracle (the same top-{k} experts, the same "
+          f"kept assignments, out within {MOE_TOL} x max |out|, load balance within 1e-5): "
+          f"{json.dumps(summary)}", flush=True)
+
+    # prefill vs decode in bf16, at a capacity no expert can fill (at the
+    # configured one a prefill drops assignments that a decode keeps)
+    dropless = build_model(cfg.scaled(moe_capacity_factor=float(E)))
+    gaps, std = prefill_decode_gate(torch, tag, ((dropless, LM_BF16_TOL),), params,
+                                    toks[:1, :LM_CHECK_T], LM_CHECK_T)
+    print(f"[{tag}] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode "
+          f"(capacity factor {E}), max |dlogit| {json.dumps(gaps)} (tol {LM_BF16_TOL}); "
+          f"logits std {std:.3f}", flush=True)
+
+    ds, _, held, _, _, r0 = lm_datastore(torch, np, dev, tag, model, params, n_batches)
+    # B1's copy (1.9 GB) beside the 55.4 GB of weights: a decode step of two
+    # layers at 4 slots needs well under a GB more
+    stores = lm_stores(torch, tag, ds, headroom=2 << 30)
+    check("inline" in stores, "no room on the card for B1's vector copy")
+    runs, path_launches = {}, {}
+    for name in ("none", "kernel", "inline"):
+        _, runs[name], path_launches[name] = serve_requests(
+            torch, np, kernels, model, params, None if name == "none" else stores[name], r0,
+            ARCTIC_REQUESTS)
+    check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
+    check(path_launches["inline"]["fused_window_search"] > 0, "the inline datastore never ran B1")
+    check(not any(path_launches["none"].values()), "plain decoding launched a kernel")
+    print(f"[{tag}] ok: {ARCTIC_REQUESTS} requests x {LM_NEW} new tokens each served on "
+          f"{LM_SLOTS} slots (cache {LM_CACHE}), without retrieval and through B2 and B1; {card}: "
+          f"{json.dumps(runs)}; launches {json.dumps(path_launches)}", flush=True)
+    path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores,
+                        held[:LM_SLOTS].contiguous(), r0, path_launches)
+    print(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"({phase_s():.1f} s)", flush=True)
     del stores, ds, params
-    torch.cuda.empty_cache()
+    free_card(torch)
+
+
+def hybrid_phase(torch, np, dev, card, phase_s) -> None:
+    """Phase 20: Hymba-1.5B at its published width and depth on the batch
+    path (the engine serves uniform caches only): a prefill of HY_BATCH
+    prompts of HY_PROMPT tokens, past the window, into per-layer caches of
+    HY_CACHE slots (the windowed layers' rings hold the window), prefill
+    vs decode across the window's edge, and HY_STEPS greedy decode steps."""
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import _layer_window, forward
+
+    tag = "hymba"
+    arch, width = HYMBA
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = lm_model(torch, dev, tag, arch, width)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (HY_BATCH, HY_PROMPT)),
+                              device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, caches = model.prefill(params, {"tokens": prompts}, cache_len=HY_CACHE)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _, full, _ = forward(params, prompts, cfg, want_cache=True)
+    _, H, P, N, conv_dim, _ = ssm_mod.ssm_dims(cfg)
+    check(isinstance(caches, list) and len(caches) == cfg.n_layers, "caches not per layer")
+    windowed = [li for li in range(cfg.n_layers) if _layer_window(cfg, li)]
+    for li, c in enumerate(caches):
+        size = _layer_window(cfg, li) or HY_CACHE
+        kv = (HY_BATCH, size, cfg.n_kv_heads, cfg.hd)
+        check(tuple(c["k"].shape) == kv and tuple(c["v"].shape) == kv
+              and tuple(c["ssm"].shape) == (HY_BATCH, H, N, P)
+              and tuple(c["conv"].shape) == (HY_BATCH, ssm_mod.CONV_W - 1, conv_dim),
+              f"layer {li}: cache shapes {[tuple(t.shape) for t in c.values()]}")
+    # the rings: position p at slot p % window, for the window's last positions
+    w = cfg.sliding_window
+    slots = torch.arange(HY_PROMPT - w, HY_PROMPT, device=dev) % w
+    check(all(torch.equal(caches[li]["k"][:, slots], full[li]["k"][:, HY_PROMPT - w:])
+              and torch.equal(caches[li]["ssm"], full[li]["ssm"]) for li in windowed),
+          "a windowed layer's ring is not the last positions of the prompt")
+    check(all(torch.equal(caches[li]["k"][:, :HY_PROMPT], full[li]["k"])
+              for li in cfg.global_layers), "a global layer's cache is not the prompt's")
+    del full
+    gaps, std = prefill_decode_gate(
+        torch, tag, ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL),
+                     (model, LM_BF16_TOL)), params, prompts, HY_CACHE)
+    print(f"[{tag}] ok: prefill of {HY_BATCH} x {HY_PROMPT} tokens ({prefill_ms:.1f} ms) into "
+          f"{len(windowed)} rings of {w} and {len(cfg.global_layers)} global caches of "
+          f"{HY_CACHE}; prefill of {HY_PROMPT} == prefill of {HY_PROMPT - 1} + one decode "
+          f"across the window's edge, max |dlogit| {json.dumps(gaps)} (tol fp32 "
+          f"{LM_FP32_TOL}, {cfg.dtype} {LM_BF16_TOL}); logits std {std:.3f}", flush=True)
+
+    tok = logits.argmax(-1)
+    step_ms = []
+    with torch.inference_mode():
+        for i in range(HY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _, caches = model.decode(params, tok, caches, HY_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+            tok = logits.argmax(-1)
+    print(f"[{tag}] ok: {HY_STEPS} greedy decode steps of the batch of {HY_BATCH} ({card}): "
+          f"step ms p50 {float(np.percentile(step_ms, 50)):.3f}, p99 "
+          f"{float(np.percentile(step_ms, 99)):.3f}, "
+          f"{HY_BATCH * HY_STEPS / sum(step_ms) * 1e3:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({phase_s():.1f} s)", flush=True)
+    del caches, params
+    free_card(torch)
 
 
 def search_phases(torch, np):
@@ -1978,20 +2378,24 @@ def search_phases(torch, np):
                   f"bit-equal to the twin (max |err| {float((got - want).abs().max())})")
             n_cases += 1
     max_err["pairwise_l2"] = max(l2_err.values())
-    # B1/B2 at the kNN-LM datastore's width (d = 4096; K = 10 and the K =
-    # 3077, L = 2 derived for its 262,144 keys) on integer inputs, Q = 1, the
-    # serving engine's 4 slots and 64: bit-equal to the twin
+    # B1/B2 at the kNN-LM datastores' widths on integer inputs, bit-equal to
+    # the twin: d = 4096 (K = 10 and the K = 3077, L = 2 derived for phase
+    # 17's 262,144 keys) at Q = 1, the serving engine's 4 slots and 64; d =
+    # 2048 (K = 2821, phase 18's 131,072 keys) and d = 7168 (K = 2308, phase
+    # 19's 32,768 keys; a stage holds 1-2 rows) at Q = 4 and 64
     lm_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    for Q, K, kind, mode in itertools.product((1, 4, 64), (10, 3077), ("window", "cand"),
-                                              ("norm", "exact")):
-        args, n = int_fused_case(torch, lm_gen, kind, Q, 2, K, 4096, 6, dev)
+    lm_cases = [(Q, K, 4096) for Q in (1, 4, 64) for K in (10, 3077)]
+    lm_cases += [(Q, K, d) for Q in (4, 64) for K, d in ((2821, 2048), (2308, 7168))]
+    for (Q, K, d), kind, mode in itertools.product(lm_cases, ("window", "cand"),
+                                                   ("norm", "exact")):
+        args, n = int_fused_case(torch, lm_gen, kind, Q, 2, K, d, 6, dev)
         name = f"fused_{kind}_search"
         kk = dict(ks=LM_DS["k"], n=n, mode=mode, **({"M": 5} if kind == "window" else {}))
         got = wrappers[name](*args, **kk)
         torch.cuda.synchronize()
         want = twins[name](*args, **kk)
         check(all(torch.equal(a_, b_) for a_, b_ in zip(got, want)),
-              f"{name} at d = 4096, K = {K}, Q = {Q}, {mode}: not bit-equal to the twin")
+              f"{name} at d = {d}, K = {K}, Q = {Q}, {mode}: not bit-equal to the twin")
         n_cases += 1
         del args, got, want
     print(f"[twins] ok: {n_cases} kernel-vs-twin cases agree (counts equal, "
@@ -3279,10 +3683,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     card, records = st["card"], st["records"]
+    dev, kernels, wrappers, twins = st["dev"], st["kernels"], st["wrappers"], st["twins"]
     # ------------------------------------------ 17. kNN-LM serving, Yi-9B
-    knnlm_phase(torch, np, st["dev"], card, st["kernels"], st["wrappers"], st["twins"],
-                records, st["phase_s"])
-    print(f"[knnlm] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
+    knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"])
+    # ------------------------------- 18. kNN-LM serving, Mamba2-1.3B (SSM)
+    knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"],
+                tag="mamba")
+    # --------------------------------- 19. Arctic-480B (MoE), 2 of 35 layers
+    arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"])
+    # ----------------------------------- 20. Hymba-1.5B (hybrid), batch path
+    hybrid_phase(torch, np, dev, card, st["phase_s"])
+    print(f"[hymba] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,4 +1,5 @@
-"""LM zoo on PyTorch: the dense decoder-only family (ROADMAP A17).
+"""LM zoo on PyTorch: the decoder-only families dense, moe, ssm and hybrid
+(ROADMAP A17; encdec and vlm wait for its item 4).
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model

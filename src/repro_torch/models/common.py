@@ -55,7 +55,7 @@ def dense_init(generator: torch.Generator, shape, in_axis_size=None, dtype=torch
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
                device=None) -> torch.Tensor:
-    out = torch.randn(shape, generator=generator, device=generator.device) * 0.02
+    out = torch.randn(shape, generator=generator, device=generator.device).mul_(0.02)
     return out.to(device=device if device is not None else generator.device, dtype=dtype)
 
 

@@ -9,8 +9,8 @@ give ``device="meta"`` tensors, the counterpart of JAX's
 ``ShapeDtypeStruct``.  ``params_from_reference`` carries the reference's
 parameter tree (as numpy arrays) into the port.
 
-Only the dense family is ported; the others raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The dense, moe, ssm and hybrid families are ported; encdec and vlm
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,16 +30,15 @@ __all__ = ["Model", "build_model", "param_count", "params_from_reference"]
 
 # families whose layers are not ported yet, and what waits on each
 _WAITING = {
-    "moe": "the MoE FFN (ROADMAP A17, item 1 of its remainder)",
-    "ssm": "the SSM family (ROADMAP A17, item 2 of its remainder)",
-    "hybrid": "the hybrid family (ROADMAP A17, item 3 of its remainder)",
     "encdec": "the encoder-decoder family and cross attention (ROADMAP A17, item 4)",
     "vlm": "the VLM family and cross attention (ROADMAP A17, item 4)",
 }
 
 
 def _cast_params(params: transformer.Transformer, cfg) -> transformer.Transformer:
-    """Store >=2D weights in cfg.param_dtype (bf16 for the giant MoEs)."""
+    """Store >=2D weights in cfg.param_dtype (bf16 for the giant MoEs).
+    ``transformer.init_params`` stores all but the MoE router so as it
+    draws them; this casts what is left."""
     pd = DTYPES[cfg.param_dtype]
     for p in params.parameters():
         if p.dim() > 1 and p.dtype == torch.float32 and pd != torch.float32:
@@ -84,7 +83,7 @@ def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
     if fam in _WAITING:
         raise NotImplementedError(f"family {fam!r} is not ported yet: {_WAITING[fam]}")
-    if fam != "dense":
+    if fam not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(fam)
 
     def init(generator: torch.Generator, device=None):
@@ -120,19 +119,19 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> transfor
     """The reference's parameter tree (nested dicts of arrays, blocks
     stacked on a leading axis) as the port's module on ``device`` (the
     CUDA device when None), dtypes kept."""
-    if cfg.family != "dense":
+    if cfg.family in _WAITING:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"{_WAITING.get(cfg.family, cfg.family)}")
+                                  f"{_WAITING[cfg.family]}")
     device = resolve_device(device)
     b = tree["blocks"]
-    blocks = []
-    for i in range(cfg.n_layers):
-        blocks.append(transformer.Block(
-            _tensor(b["norm1"][i], device),
-            {k: _tensor(v[i], device) for k, v in b["attn"].items()},
-            _tensor(b["norm2"][i], device),
-            {k: _tensor(v[i], device) for k, v in b["ffn"].items()},
-        ))
+
+    def layer(v, i):
+        if isinstance(v, dict):
+            return {k: _tensor(a[i], device) for k, a in v.items()}
+        return _tensor(v[i], device)
+
+    blocks = [transformer.Block(**{name: layer(v, i) for name, v in b.items()})
+              for i in range(cfg.n_layers)]
     head = _tensor(tree["lm_head"], device) if "lm_head" in tree else None
     return transformer.Transformer(_tensor(tree["embed"], device), blocks,
                                    _tensor(tree["final_norm"], device), head)

@@ -5,9 +5,9 @@ are admitted by prefilling (B=1) and splicing the resulting cache into a
 free slot; every engine step decodes all live slots with per-slot
 positions; finished sequences (EOS / max_new_tokens / a full cache)
 retire and free their slot.  Supports the uniform-cache families (dense
-/ moe / ssm; of these only dense is ported so far, and ``build_model``
-refuses the others) — hybrid/encdec/vlm cache splicing differs per layout
-and is served via the batch path instead.
+/ moe / ssm: every cache is a stacked (L, B, ...) tensor — k/v, or the
+SSM state and conv tail — spliced on axis 1) — hybrid/encdec/vlm cache
+splicing differs per layout and is served via the batch path instead.
 
 Sampling: greedy, or temperature top-k from one ``torch.Generator``
 seeded by ``seed`` (on the host, where the step's logits are read).

@@ -125,6 +125,10 @@ __all__ = [
     "ref_token_batch",
     "ref_knn_probs",
     "ref_configs",
+    "ref_ssm_params",
+    "ref_ssm_forward",
+    "ref_ssm_decode",
+    "ref_moe_ffn",
 ]
 
 INDEX_FIELDS = (
@@ -840,3 +844,36 @@ def ref_knn_probs(ds, queries, vocab: int, r0: float, steps: int):
     d, i = ds.search(q, r0=r0, steps=steps)
     return (np.asarray(knn_probs(ds, q, vocab, r0=r0, steps=steps)), np.asarray(d),
             np.asarray(i))
+
+
+# ---------------------------------------------------------------------------
+# The reference's SSD mixer and MoE FFN on numpy inputs
+# ---------------------------------------------------------------------------
+
+
+def ref_ssm_params(cfg, seed: int) -> dict:
+    """``repro.models.ssm.ssm_params`` drawn from ``jax.random.key(seed)``."""
+    from repro.models import ssm
+
+    return _np_tree(ssm.ssm_params(jax.random.key(seed), cfg))
+
+
+def ref_ssm_forward(x, params, cfg, chunk: int):
+    from repro.models import ssm
+
+    return _np_tree(ssm.ssm_forward(jnp.asarray(x), _jnp_tree(params), cfg, chunk=chunk))
+
+
+def ref_ssm_decode(x1, params, cfg, state, conv):
+    from repro.models import ssm
+
+    return _np_tree(ssm.ssm_decode(jnp.asarray(x1), _jnp_tree(params), cfg,
+                                   jnp.asarray(state), jnp.asarray(conv)))
+
+
+def ref_moe_ffn(x, params, cfg):
+    """``repro.models.ffn.moe_ffn`` on one device: (out, load_balance)."""
+    from repro.models import ffn
+
+    out, aux = ffn.moe_ffn(jnp.asarray(x), _jnp_tree(params), cfg)
+    return np.asarray(out), float(aux["load_balance"])

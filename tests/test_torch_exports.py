@@ -21,9 +21,7 @@ from repro_torch.core import normal_pdf, normal_sf  # noqa: E402
 from repro_torch.data import make_uniform, paper_dataset_specs  # noqa: E402
 
 # names of modules not yet ported, by the ROADMAP item that ports them
-WAITING = {
-    "models.ffn": {"moe_params", "moe_ffn"},  # A17: the MoE FFN
-}
+WAITING = {}
 
 PORTED = (
     "core", "core.baselines", "core.hashing", "core.index", "core.params",

@@ -1,13 +1,17 @@
-"""The dense LM (``configs``, ``models.{common,attention,ffn,transformer,
-registry}``) against the reference on the same weights.
+"""The decoder LM (``configs``, ``models.{common,attention,ffn,ssm,
+transformer,registry}``) against the reference on the same weights.
 
-For each of the four dense configs the reference's smoke model (two
-layers, d_model 64, fp32) is initialised by the reference, its parameter
-tree carried into the port by ``params_from_reference``, and both run
-the same numpy tokens: forward hidden states, logits and loss, prefill
-logits and caches, and decode steps agree within rtol = atol = 1e-4 (the
-two frameworks sum the matrix products in different orders; at this
-width that moves the fp32 outputs by ~1e-6).
+For each of the four dense configs and the moe (arctic-480b, kimi-k2),
+ssm (mamba2-1.3b) and hybrid (hymba-1.5b) ones, the reference's smoke
+model (two layers, d_model 64, fp32 compute; the MoEs keep their bf16
+``param_dtype``) is initialised by the reference, its parameter tree
+carried into the port by ``params_from_reference``, and both run the same
+numpy tokens: forward hidden states, logits and loss (with the MoE
+load-balance term), prefill logits and caches, and decode steps agree
+within rtol = atol = 1e-4 (the two frameworks sum the matrix products in
+different orders; at this width that moves the fp32 outputs by ~1e-6).
+The MoE FFN is also held against the reference where its capacity drops
+assignments and at Kimi's top-8.
 """
 
 import dataclasses
@@ -23,6 +27,7 @@ from repro_torch.models import attention as port_attention  # noqa: E402
 from repro_torch.models.registry import build_model, param_count, params_from_reference  # noqa: E402
 
 DENSE = ("minicpm-2b", "phi3-medium-14b", "starcoder2-3b", "yi-9b")
+FAMILIES = ("arctic-480b", "kimi-k2-1t-a32b", "mamba2-1.3b", "hymba-1.5b")
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, T = 2, 16
 CPU = "cpu"
@@ -32,9 +37,9 @@ def _tokens(cfg, seed, shape=(B, T)):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + FAMILIES)
 def pair(request):
-    """(reference model, port model, port params) for one dense config."""
+    """(reference model, port model, port params) for one config."""
     ref = R.RefLM(request.param)
     cfg = get_config(request.param).smoke().scaled(n_layers=2)
     model = build_model(cfg)
@@ -47,7 +52,15 @@ def _close(got, want, **tol):
 
 
 def _caches_close(got, want):
-    for name in ("k", "v"):
+    """Every cache tensor (k/v, ssm, conv), stacked or per layer."""
+    if isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _caches_close(g, w)
+        return
+    assert set(got) == set(want)
+    for name in want:
+        assert tuple(got[name].shape) == want[name].shape, name
         _close(got[name], want[name])
 
 
@@ -67,23 +80,36 @@ def test_configs_are_the_references():
         {k: dataclasses.asdict(v) for k, v in ref.SHAPES.items()}
 
 
+def _ref_tensor(arr):
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
+def _ref_dtype(arr):
+    return torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32
+
+
 def test_params_from_reference_round_trip(pair):
+    """Every leaf of the reference's tree under its key path in the port
+    (``blocks.<i>.moe.w_up``, ``blocks.<i>.ssm.A_log``, ...), in its dtype."""
     ref, model, params = pair
     tree = ref.tree
     got = dict(params.named_parameters())
     assert param_count(params) == sum(a.size for a in _leaves(tree))
-    assert torch.equal(got["embed"], torch.tensor(tree["embed"]))
-    assert torch.equal(got["final_norm"], torch.tensor(tree["final_norm"]))
+    for name in ("embed", "final_norm"):
+        assert got[name].dtype == _ref_dtype(tree[name])
+        assert torch.equal(got[name].float(), _ref_tensor(tree[name]))
     assert ("lm_head" in got) == ("lm_head" in tree)
+    paths = set()
     for i in range(model.cfg.n_layers):
-        for group in ("attn", "ffn"):
-            for name, arr in tree["blocks"][group].items():
-                t = got[f"blocks.{i}.{group}.{name}"]
-                assert t.dtype == torch.float32
-                assert torch.equal(t, torch.tensor(arr[i]))
-        for name in ("norm1", "norm2"):
-            assert torch.equal(got[f"blocks.{i}.{name}"],
-                               torch.tensor(tree["blocks"][name][i]))
+        for group, leaf in tree["blocks"].items():
+            items = leaf.items() if isinstance(leaf, dict) else [(None, leaf)]
+            for name, arr in items:
+                path = f"blocks.{i}.{group}" + (f".{name}" if name else "")
+                paths.add(path)
+                t = got[path]
+                assert t.dtype == _ref_dtype(arr), path
+                assert torch.equal(t.float(), _ref_tensor(arr[i])), path
+    assert paths == {k for k in got if k.startswith("blocks.")}
 
 
 def _leaves(tree):
@@ -117,8 +143,9 @@ def test_prefill_and_decode(pair):
     _close(logits, want[0])
     _close(hidden, want[1])
     _caches_close(caches, want[2])
-    assert caches["k"].shape == (model.cfg.n_layers, B, T + 4, model.cfg.n_kv_heads,
-                                 model.cfg.hd)
+    if "k" in caches:
+        assert caches["k"].shape == (model.cfg.n_layers, B, T + 4, model.cfg.n_kv_heads,
+                                     model.cfg.hd)
     ref_caches = want[2]
     tok = np.argmax(want[0], axis=-1).astype(np.int32)
     for i in range(3):
@@ -254,11 +281,144 @@ def test_init_follows_the_reference_rules():
     assert tied.init(torch.Generator(), device=CPU).lm_head is None
 
 
-@pytest.mark.parametrize("arch", sorted(a for a in CONFIGS if a not in DENSE))
+@pytest.mark.parametrize("arch", sorted(a for a in CONFIGS if a not in DENSE + FAMILIES))
 def test_unported_families_raise(arch):
     cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A17, item 4"):
         build_model(cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    experts_per_token: int
+    moe_capacity_factor: float = 1.25
+
+
+def _moe_weights(rng, D, F, E, kind):
+    def w(shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    p = {"router": w((D, E), D), "w_up": w((E, D, F), D), "w_down": w((E, F, D), F)}
+    if kind == "swiglu":
+        p["w_gate"] = w((E, D, F), D)
+    return p
+
+
+@pytest.mark.parametrize("E,k,factor,kind", [
+    (8, 2, 1.25, "swiglu"),    # the smoke MoEs' routing
+    (8, 2, 0.25, "swiglu"),    # capacity binds: assignments are dropped
+    (16, 8, 1.25, "swiglu"),   # Kimi's top-8 over 16 experts
+    (16, 8, 0.25, "gelu"),     # top-8, drops, the GELU experts
+])
+def test_moe_ffn_matches_reference(E, k, factor, kind):
+    """``moe_ffn`` of both packages on the same router, experts and inputs:
+    the output and the load-balance term; where the capacity binds, the
+    port drops assignments (the same ones: the outputs agree)."""
+    from repro_torch.models import ffn
+
+    rng = np.random.default_rng(E * k + int(factor * 4))
+    cfg = MoECfg(E, k, factor)
+    D, F_, Bx, Tx = 32, 48, 3, 24
+    p = _moe_weights(rng, D, F_, E, kind)
+    x = rng.standard_normal((Bx, Tx, D)).astype(np.float32)
+    want, want_lb = R.ref_moe_ffn(x, p, cfg)
+    got, aux = ffn.moe_ffn(torch.from_numpy(x), {n: torch.from_numpy(v) for n, v in p.items()},
+                           cfg)
+    _close(got, want)
+    assert abs(float(aux["load_balance"]) - want_lb) <= 1e-5 * want_lb
+    # the dispatch: kept assignments per expert at most the capacity
+    cap = max(4, int(np.ceil(Bx * Tx * k / E * factor)))
+    probs = torch.softmax(torch.from_numpy(x.reshape(-1, D) @ p["router"]), -1)
+    _, ids = ffn._top_k(probs, k)
+    keep, slot, _ = ffn._dispatch(ids, capacity=cap, n_local=E, first_eid=0)
+    kept = int(keep.sum())
+    assert kept == sum(min(cap, int((ids == e).sum())) for e in range(E))
+    assert (kept < Bx * Tx * k) == (factor < 1)
+    assert torch.equal(torch.sort(slot[keep]).values, torch.unique(slot[keep]))
+
+
+def test_moe_top_k_breaks_ties_to_the_lower_expert():
+    from repro_torch.models import ffn
+
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25, 0.25, 0.25, 0.25]])
+    w, i = ffn._top_k(probs, 2)
+    assert i.tolist() == [[1, 2], [0, 1]] and torch.equal(w[:, 0], w[:, 1])
+
+
+def test_moe_expert_parallel_mesh_raises():
+    """The reference's shard_map branch has no counterpart on one device."""
+    from repro_torch.models import ffn
+
+    mesh = type("M", (), {"shape": {"data": 1, "model": 2}})()
+    p = {n: torch.from_numpy(v) for n, v in _moe_weights(np.random.default_rng(0), 8, 8, 4,
+                                                          "swiglu").items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP A17, item 7"):
+        ffn.moe_ffn(torch.zeros((1, 4, 8)), p, MoECfg(4, 2), mesh=mesh)
+
+
+@pytest.mark.parametrize("T_prompt", [6, 12])
+def test_hybrid_window_ring(T_prompt):
+    """Hymba's smoke config (window 8, layer 0 global): a prompt of 12
+    passes the window, so layer 1 keeps its last 8 positions rolled into
+    the ring (position p at slot p % 8) while layer 0 keeps all 32 slots;
+    the SSM state and conv tail carry over; ten decode steps wrap the
+    ring, each equal to the reference's."""
+    ref = R.RefLM("hymba-1.5b")
+    cfg = ref.cfg
+    model = build_model(cfg)
+    params = params_from_reference(ref.tree, cfg, device=CPU)
+    toks = _tokens(cfg, 8, (B, T_prompt))
+    want = ref.prefill(toks, cache_len=32)
+    logits, _, caches = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                      cache_len=32)
+    assert isinstance(caches, list) and caches[0]["k"].shape[1] == 32
+    assert caches[1]["k"].shape[1] == cfg.sliding_window
+    _close(logits, want[0])
+    _caches_close(caches, want[2])
+    ref_caches, tok = want[2], np.argmax(want[0], axis=-1).astype(np.int32)
+    for i in range(10):
+        w_logits, _, ref_caches = ref.decode(tok, ref_caches, T_prompt + i)
+        logits, _, caches = model.decode(params, torch.from_numpy(tok), caches, T_prompt + i)
+        _close(logits, w_logits)
+        _caches_close(caches, ref_caches)
+        tok = np.argmax(w_logits, axis=-1).astype(np.int32)
+
+
+def test_bf16_init_casts_each_tensor_as_drawn():
+    """A bf16 ``param_dtype`` (smoke Arctic): the parameters equal those of
+    drawing the same model in float32 and casting every >=2-D weight
+    afterwards — the per-tensor cast draws the same values."""
+    cfg = get_config("arctic-480b").smoke()
+    assert cfg.param_dtype == "bfloat16"
+    a = build_model(cfg).init(torch.Generator().manual_seed(5), device=CPU)
+    b = build_model(cfg.scaled(param_dtype="float32")).init(torch.Generator().manual_seed(5),
+                                                            device=CPU)
+    got, want = dict(a.named_parameters()), dict(b.named_parameters())
+    assert set(got) == set(want)
+    for name, w in want.items():
+        w = w.to(torch.bfloat16) if w.dim() > 1 else w
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
+    assert got["blocks.0.moe.router"].dtype == torch.bfloat16
+    assert got["blocks.1.moe.w_up"].shape == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_new_families_decode_consistent_with_prefill(arch):
+    """test_decode_consistent_with_prefill for the moe, ssm and hybrid smoke
+    configs on the port's own draws.  The MoEs run with a capacity no
+    expert can fill (factor E): at 1.25 the prefill's capacity drops
+    assignments that the one-token decode keeps, by design."""
+    cfg = get_config(arch).smoke()
+    if cfg.family == "moe":
+        cfg = cfg.scaled(moe_capacity_factor=float(cfg.n_experts))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=CPU)
+    toks = torch.from_numpy(_tokens(cfg, 7))
+    logits_full, _, _ = model.prefill(params, {"tokens": toks}, cache_len=T)
+    _, _, caches = model.prefill(params, {"tokens": toks[:, : T - 1]}, cache_len=T)
+    logits_dec, _, _ = model.decode(params, toks[:, T - 1], caches, T - 1)
+    np.testing.assert_allclose(logits_dec.numpy(), logits_full.numpy(), rtol=2e-3, atol=2e-3)
 
 
 def test_entry_points_need_a_device_without_cuda():

@@ -3,7 +3,8 @@
 the port against the reference on the same weights and data.
 
 The parity cases carry the reference's smoke yi-9b (two layers, fp32)
-into the port with ``params_from_reference``: the datastore's keys are
+into the port with ``params_from_reference`` (and, for greedy engine
+outputs, its smoke mamba2-1.3b and arctic-480b too): the datastore's keys are
 the reference's hidden states within 1e-4, its index carried across with
 ``from_arrays`` searches to the same ids, ``knn_probs`` agrees within
 1e-5, and greedy engine outputs (with and without retrieval) are the
@@ -131,6 +132,24 @@ def test_engine_sampling_and_retirement(tiny):
     eng.submit(r)
     eng.run()
     assert r.done and r.output == seq[:stop + 1]
+
+
+def test_engine_ssm_family():
+    """tests/test_serving.py::test_engine_ssm_family: the engine splices the
+    SSM state and conv tail of each admitted request (more requests than
+    slots)."""
+    cfg = get_config("mamba2-1.3b").smoke().scaled(n_layers=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device=CPU)
+    eng = _engine(model, params, slots=2, cache_len=32)
+    assert set(eng.caches) == {"ssm", "conv"}
+    reqs = [Request(uid=i, prompt=np.arange(4, dtype=np.int32), max_new_tokens=5)
+            for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and len(r.output) == 5 for r in reqs)
+    assert reqs[0].output == reqs[2].output  # the same prompt, another slot
 
 
 def test_knn_probs_retrieves_neighbors():
@@ -275,6 +294,40 @@ def test_greedy_retrieval_engine_matches_reference(carried):
     assert [r.output for r in got] == want
 
 
+@pytest.fixture(scope="module", params=("mamba2-1.3b", "arctic-480b"))
+def carried_family(request):
+    """The reference's smoke SSM or MoE model and the port's copy."""
+    ref = R.RefLM(request.param)
+    model = build_model(ref.cfg)
+    return ref, model, params_from_reference(ref.tree, ref.cfg, device=CPU)
+
+
+@pytest.mark.parametrize("retrieval", [False, True])
+def test_greedy_family_engine_matches_reference(carried_family, retrieval):
+    """Greedy engine outputs of the SSM and MoE families equal the
+    reference's on the same weights, without and with the reference's
+    datastore (its index carried across) mixed into every step."""
+    ref, model, params = carried_family
+    cfg = ref.cfg
+    reqs = _greedy_requests(cfg.vocab_size)
+    kw, ref_kw = {}, {}
+    if retrieval:
+        batches = [R.ref_token_batch(cfg.vocab_size, 16, 2, 1, s) for s in range(3)]
+        rds = ref.datastore(batches, 5, t=16, k=4, block_size=32, lam=0.5)
+        ds = Datastore.from_index(from_arrays(R.index_arrays(rds.index),
+                                              R.index_params(rds.index), device=CPU),
+                                  np.asarray(rds.values), temperature=10.0, lam=0.5, k=4)
+        ref_kw["retrieval"] = ref.retrieval(rds, 0.5, 4)
+        kw["retrieval"] = RetrievalLM(model, ds, r0=0.5, steps=4)
+    want = ref.engine(reqs, slots=2, cache_len=32, **ref_kw)
+    eng = _engine(model, params, slots=2, cache_len=32, **kw)
+    got = [Request(**r) for r in reqs]
+    for r in got:
+        eng.submit(r)
+    eng.run()
+    assert [r.output for r in got] == want
+
+
 def test_datastore_search_uses_cache():
     """tests/test_store_scheduler.py::test_datastore_search_uses_cache:
     repeated hidden-state queries hit the shared cache; a collection
@@ -344,6 +397,17 @@ def test_launch_serve_cpu(capsys):
     from repro_torch.launch import serve as launch_serve
 
     done, steps = launch_serve.main(["--device", "cpu", "--requests", "3", "--retrieval"])
+    assert done == 3 and steps > 0
+    assert "served 3/3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "arctic-480b"])
+def test_launch_serve_cpu_families(arch, capsys):
+    """``python -m repro_torch.launch.serve --device cpu --arch <arch>``:
+    the SSM and MoE smoke configs through the engine."""
+    from repro_torch.launch import serve as launch_serve
+
+    done, steps = launch_serve.main(["--device", "cpu", "--arch", arch, "--requests", "3"])
     assert done == 3 and steps > 0
     assert "served 3/3 requests" in capsys.readouterr().out
 

@@ -254,9 +254,38 @@ Phases, each printing a line (with its seconds) when it passes:
                  slots (windowed layers' rings equal to the prompt's last
                  1024 positions, global layers' caches to all of them), prefill
                  vs decode across the window's edge in fp32 and bf16, and 64
-                 greedy decode steps (step ms p50/p99).
+                 greedy decode steps (step ms p50/p99);
+21. whisper     — kNN-LM on the batch path (``xattn_phase(tag="whisper")``:
+                 the engine serves uniform caches only) with whisper-medium
+                 at its published width and depth (24 + 24 layers x 1024, 16
+                 heads of 64, d_ff 4096 GELU, vocab 51865 tied, 1500 stub
+                 frames of d_model per sample; fp32 weights, bf16 compute):
+                 B1/B2's shared-memory plan at d = 1024 first; a datastore of
+                 32 batches of 8 x 448 tokens (448: Whisper's text context),
+                 each sample with its own seeded frames (114,688 keys at d =
+                 1024); phase 17's gates (held-out id sets, distances,
+                 ``knn_probs`` sums, prefill vs decode fp32 / bf16), another
+                 sample's frames moving the logits by more than LM_BF16_TOL;
+                 4 requests of 64 tokens, each with its own frames, 32
+                 greedy new tokens without retrieval and through the torch,
+                 kernel and inline datastores: every token of kernel / inline
+                 equals torch's, a request parting only where that step's two
+                 searches differ at near-ties of the k-th distance or the
+                 top-two log-probabilities tie within LM_BF16_TOL; request 0
+                 decoded alone equals its row of the batch up to such a
+                 near-tie; records ``<wrapper>@whisper``;
+22. vlm         — the same (``xattn_phase(tag="vlm")``) with
+                 llama-3.2-vision-11b at its published width and depth (40
+                 self layers x 4096, 32/8 heads of 128, d_ff 14336, vocab
+                 128256, a gated cross layer after every 5th, 1601 stub image
+                 tokens of d_vision 1280 per sample; 11.53 B fp32 weights),
+                 its 8 cross layers' gates (drawn as 0 by the reference, so
+                 that the images would not count) set to atanh(0.5), a
+                 datastore of 16 batches of 8 x 1024 tokens (131,072 keys at
+                 d = 4096), images in place of frames; records
+                 ``<wrapper>@vlm``.
 
-Each of phases 17-20 frees its model before the next starts and prints
+Each of phases 17-22 frees its model before the next starts and prints
 its peak memory.  Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -337,7 +366,11 @@ LM_BF16_TOL = 0.125
 # itself 0.419 from its fp32 one, and its decode 0.1406 from the bf16
 # prefill (0.0859 with the SSD mixer in fp32: the rest is the bf16 matrix
 # products of 48 layers; tools/ssm_bf16_drift.py, NVIDIA H100 80GB HBM3,
-# 700 W); the reference's own bf16 numbers are not measured
+# 700 W).  The reference drifts as far on the same weights: at 24 of the 48
+# layers, on the CPU, over 8 prompts of 64 tokens, its decode is
+# 0.078-0.112 from its bf16 prefill and the port's 0.082-0.105, the bf16
+# prefills 0.211-0.256 and 0.200-0.276 from fp32
+# (tools/ssm_ref_bf16_drift.py --layers 24 --rows 8)
 SSM_BF16_TOL = 0.25
 # phases 17-18: kNN-LM serving; tag -> (arch, its published width (config
 # fields), corpus batches of LM_BATCH x LM_SEQ tokens, the bf16 prefill vs
@@ -366,6 +399,23 @@ HYMBA = ("hymba-1.5b", dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5,
                             ssm_chunk=128, sliding_window=1024, global_layers=(0, 15, 31),
                             vocab_size=32001, tie_embeddings=True))
 HY_BATCH, HY_PROMPT, HY_CACHE, HY_STEPS = 4, 1100, 1200, 64
+# phases 21-22: the cross-attention families serving kNN-LM on the batch
+# path; tag -> (arch, its published width (config fields), corpus batches of
+# LM_BATCH x seq tokens, seq, the modality stub each sample carries)
+XA_RUNS = {
+    "whisper": ("whisper-medium", dict(n_layers=24, n_enc_layers=24, d_model=1024, n_heads=16,
+                                       n_kv_heads=16, hd=64, d_ff=4096, ffn_kind="gelu",
+                                       vocab_size=51865, enc_seq=1500, tie_embeddings=True),
+                32, 448, "frames"),  # 448: Whisper's text context; 114,688 keys
+    "vlm": ("llama-3.2-vision-11b", dict(n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+                                         hd=128, d_ff=14336, vocab_size=128256, cross_every=5,
+                                         n_img_tokens=1601, d_vision=1280),
+            16, 1024, "images"),  # 131,072 keys
+}
+XA_REQUESTS, XA_PROMPT = 4, 64
+# phase 22: the reference draws every cross layer's gates as 0, and tanh(0) = 0
+# makes a drawn model ignore its images; tanh(XA_GATE) = 0.5
+XA_GATE = math.atanh(0.5)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1482,7 +1532,9 @@ def lm_model(torch, dev, tag: str, arch: str, width: dict, n_layers: int = 0):
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(len(params.blocks) == cfg.n_layers
+    stacks = sum(len(m) for m in params.children() if isinstance(m, torch.nn.ModuleList))
+    groups = cfg.n_layers // cfg.cross_every if cfg.cross_every else 0
+    check(stacks == cfg.n_layers + cfg.n_enc_layers + groups
           and tuple(params.embed.shape) == (cfg.padded_vocab, cfg.d_model),
           f"{arch}: the drawn model is not the config's")
     n_params = param_count(params)
@@ -1494,17 +1546,20 @@ def lm_model(torch, dev, tag: str, arch: str, width: dict, n_layers: int = 0):
     return cfg, model, params
 
 
-def lm_datastore(torch, np, dev, tag, model, params, n_batches: int):
+def lm_datastore(torch, np, dev, tag, model, params, n_batches: int, seq: int = LM_SEQ,
+                 extras=None):
     """The datastore of a teacher-forced pass over ``n_batches`` synthetic
-    batches, held-out states (another batch, every 32nd position), their
-    true neighbours and r0 from the median k-th NN distance."""
+    batches of LM_BATCH x ``seq`` tokens (with the modality stubs
+    ``extras``, {name: a sample's shape}, as ``make_batch_fn`` draws
+    them), held-out states (another batch, LM_HELD of its positions),
+    their true neighbours and r0 from the median k-th NN distance."""
     from repro_torch.core import brute_force
     from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
     from repro_torch.serve import build_datastore
 
     cfg = model.cfg
-    src = SyntheticTokens(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=SEED)
-    batch_fn = make_batch_fn(src)
+    src = SyntheticTokens(cfg.vocab_size, seq, LM_BATCH, seed=SEED)
+    batch_fn = make_batch_fn(src, extras)
     batches = [batch_fn(s) for s in range(n_batches)]
     fwd = {"s": 0.0}
 
@@ -1522,7 +1577,7 @@ def lm_datastore(torch, np, dev, tag, model, params, n_batches: int):
     torch.cuda.synchronize()
     ds_s = time.perf_counter() - t0
     keys = ds.index.data
-    n_keys = n_batches * LM_BATCH * LM_SEQ
+    n_keys = n_batches * LM_BATCH * seq
     check(tuple(keys.shape) == (n_keys, cfg.d_model) and ds.values.shape[0] == n_keys,
           f"datastore holds {tuple(keys.shape)}")
     check(bool(torch.isfinite(keys).all()), "non-finite hidden states in the datastore")
@@ -1535,7 +1590,7 @@ def lm_datastore(torch, np, dev, tag, model, params, n_batches: int):
     del batches
     with torch.inference_mode():
         hb = model.loss(params, batch_fn(n_batches))[1]["hidden"]
-    held = hb[:, ::LM_SEQ * LM_BATCH // LM_HELD].reshape(-1, hb.shape[-1]).float().contiguous()
+    held = hb[:, ::seq * LM_BATCH // LM_HELD].reshape(-1, hb.shape[-1]).float().contiguous()
     del hb
     check(held.shape[0] == LM_HELD, f"{held.shape[0]} held-out states")
     bd, bi = brute_force(keys, held, k=LM_DS["k"], device=dev)
@@ -1628,14 +1683,16 @@ def serve_requests(torch, np, kernels, model, params, store, r0, n_requests: int
                   if search_ms else 0.0}, {k: launched[k] for k in FUSED}
 
 
-def prefill_decode_gate(torch, tag, models, params, prompt, cache_len):
-    """Prefill of T tokens against prefill of T - 1 and one decode, for each
-    (model, tolerance): the last logits' largest difference by dtype."""
+def prefill_decode_gate(torch, tag, models, params, batch, cache_len):
+    """Prefill of T tokens (``batch``: the tokens and any modality stub)
+    against prefill of T - 1 and one decode, for each (model, tolerance):
+    the last logits' largest difference by dtype."""
     gaps = {}
+    prompt = batch["tokens"]
     for m, tol in models:
         with torch.inference_mode():
-            full = m.prefill(params, {"tokens": prompt}, cache_len=cache_len)[0].float()
-            _, _, c = m.prefill(params, {"tokens": prompt[:, :-1]}, cache_len=cache_len)
+            full = m.prefill(params, batch, cache_len=cache_len)[0].float()
+            _, _, c = m.prefill(params, {**batch, "tokens": prompt[:, :-1]}, cache_len=cache_len)
             dec = m.decode(params, prompt[:, -1], c, prompt.shape[1] - 1)[0].float()
         err = float((dec - full).abs().max())
         gaps[m.cfg.dtype] = round(err, 6)
@@ -1725,34 +1782,13 @@ def ssd_gate(torch, params, cfg, dev, tag) -> None:
           flush=True)
 
 
-def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s,
-                tag: str = "knnlm") -> None:
-    """Phases 17 (``knnlm``: Yi-9B) and 18 (``mamba``: Mamba2-1.3B): kNN-LM
-    serving with a full-width model (random weights) and a DB-LSH datastore
-    of its own hidden states, through the torch engine and the fused
-    kernels B2 (kernel) and B1 (inline)."""
-    from repro_torch.models.registry import build_model
-    from repro_torch.models.transformer import logits_fn
-    from repro_torch.serve import Request, ServeEngine, knn_probs
-    from repro_torch.serve.retrieval import interpolate
-
-    arch, width, n_batches, bf16_tol = LM_RUNS[tag]
-    torch.cuda.reset_peak_memory_stats()
-    print(f"[{tag}] held on the card before the phase: "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    cfg, model, params = lm_model(torch, dev, tag, arch, width)
-    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
-    if cfg.family == "ssm":
-        ssd_gate(torch, params, cfg, dev, tag)
-
-    ds, batch_fn, held, bd, truth, r0 = lm_datastore(torch, np, dev, tag, model, params,
-                                                     n_batches)
-    keys = ds.index.data
-    stores = lm_stores(torch, tag, ds)
-
-    # gates 5-6 on the held-out states, and what they find
-    scale = norm_scale(torch, keys, held)
-    atol = NORM_ATOL * scale
+def heldout_gates(torch, tag, stores, held, bd, truth, r0):
+    """Gates 5-6 on the held-out states: every store's returned distances
+    equal the keys' (norm form), kernel/inline id sets equal torch's up
+    to near-ties; prints recall@8 and the ratio.  Returns each store's
+    (dists, ids) and the norm form's atol on d2."""
+    keys = stores["torch"].index.data
+    atol = NORM_ATOL * norm_scale(torch, keys, held)
     found, summary = {}, {}
     for name, s in stores.items():
         # in chunks: the selection's (Q, L, nb, K) terms are 0.1 GB a query
@@ -1781,8 +1817,16 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
     print(f"[{tag}] ok: held-out searches (r0 {r0:.4f}, steps {LM_STEPS}, k {LM_DS['k']}): "
           f"kernel/inline id sets equal torch's up to near-ties, distances equal the keys' "
           f"(norm form, atol {atol:.4f}); {json.dumps(summary)}", flush=True)
+    return found, atol
 
-    # gate 4: the retrieval distribution and the interpolation
+
+def knn_probs_gate(torch, ds, held, found, params, cfg, r0) -> None:
+    """Gate 4: the retrieval distribution sums to 1 where a neighbour was
+    found (else 0), and its interpolation with the LM is finite."""
+    from repro_torch.models.transformer import logits_fn
+    from repro_torch.serve import knn_probs
+    from repro_torch.serve.retrieval import interpolate
+
     with torch.inference_mode():
         p = torch.cat([knn_probs(ds, held[j:j + LM_SLOTS * 4], cfg.padded_vocab, r0=r0,
                                  steps=LM_STEPS) for j in range(0, LM_HELD, LM_SLOTS * 4)])
@@ -1795,12 +1839,57 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
                                      ds.lam) + 1e-20)
         check(bool(torch.isfinite(logp).all()), "interpolated log-probabilities not finite")
 
+
+def smem_plan(torch, tag, n: int, d: int) -> None:
+    """B1/B2's shared-memory plan at a datastore of n keys of width d
+    (derived K, L), printed before anything runs; fails if no stage fits."""
+    from repro_torch.core import DBLSHParams
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import _MAX_SMEM, _MODES
+
+    p_lsh = DBLSHParams.derive(n=n, d=d, c=LM_DS["c"], t=LM_DS["t"], k=LM_DS["k"],
+                               block_size=64)
+    C = p_lsh.L * p_lsh.max_blocks * p_lsh.block_size
+    lib = _build.load()
+    smem = {f"{w}[{m}]": lib.fused_search_smem_bytes(_MODES.index(m), LM_STEPS, p_lsh.L,
+                                                     p_lsh.K, p_lsh.d, C, S)
+            for w, S in (("fused_window_search", p_lsh.L * p_lsh.max_blocks),
+                         ("fused_cand_search", 0)) for m in ("norm", "exact")}
+    print(f"[{tag}] fused_search_smem_bytes at d = {p_lsh.d}, K = {p_lsh.K}, L = {p_lsh.L}, "
+          f"C = {C}, steps = {LM_STEPS}: {json.dumps(smem)} (at most {_MAX_SMEM})", flush=True)
+    check(max(smem.values()) <= _MAX_SMEM, "B1/B2 cannot plan a stage at this width")
+
+
+def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s,
+                tag: str = "knnlm") -> None:
+    """Phases 17 (``knnlm``: Yi-9B) and 18 (``mamba``: Mamba2-1.3B): kNN-LM
+    serving with a full-width model (random weights) and a DB-LSH datastore
+    of its own hidden states, through the torch engine and the fused
+    kernels B2 (kernel) and B1 (inline)."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    arch, width, n_batches, bf16_tol = LM_RUNS[tag]
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[{tag}] held on the card before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    cfg, model, params = lm_model(torch, dev, tag, arch, width)
+    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
+    if cfg.family == "ssm":
+        ssd_gate(torch, params, cfg, dev, tag)
+
+    ds, batch_fn, held, bd, truth, r0 = lm_datastore(torch, np, dev, tag, model, params,
+                                                     n_batches)
+    stores = lm_stores(torch, tag, ds)
+    found, _ = heldout_gates(torch, tag, stores, held, bd, truth, r0)
+    knn_probs_gate(torch, ds, held, found, params, cfg, r0)
+
     # gate 1: prefill of T against prefill of T - 1 and one decode, in fp32
     # (the reference's tolerance) and in the compute dtype
     prompt = torch.as_tensor(batch_fn(0)["tokens"][:1, :LM_CHECK_T], device=dev)
     gaps, std = prefill_decode_gate(
         torch, tag, ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL),
-                     (model, bf16_tol)), params, prompt, LM_CHECK_T)
+                     (model, bf16_tol)), params, {"tokens": prompt}, LM_CHECK_T)
     print(f"[{tag}] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode, "
           f"max |dlogit| {json.dumps(gaps)} (tol fp32 {LM_FP32_TOL}, {cfg.dtype} "
           f"{bf16_tol}); logits std {std:.3f}", flush=True)
@@ -1932,28 +2021,14 @@ def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_
     ARCTIC_LAYERS layers (bf16 weights): the MoE FFN against
     ``moe_oracle`` on the path's own inputs, prefill vs decode, and
     requests served without retrieval and through B2 and B1."""
-    from repro_torch.core import DBLSHParams
     from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ops import _MAX_SMEM, _MODES
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models.registry import build_model
 
     tag = "arctic"
     arch, width, n_layers, n_batches = ARCTIC
     torch.cuda.reset_peak_memory_stats()
-    # B1/B2's shared-memory plan at this width, before anything runs
-    p_lsh = DBLSHParams.derive(n=n_batches * LM_BATCH * LM_SEQ, d=width["d_model"],
-                               c=LM_DS["c"], t=LM_DS["t"], k=LM_DS["k"], block_size=64)
-    C = p_lsh.L * p_lsh.max_blocks * p_lsh.block_size
-    lib = _build.load()
-    smem = {f"{w}[{m}]": lib.fused_search_smem_bytes(_MODES.index(m), LM_STEPS, p_lsh.L,
-                                                     p_lsh.K, p_lsh.d, C, S)
-            for w, S in (("fused_window_search", p_lsh.L * p_lsh.max_blocks),
-                         ("fused_cand_search", 0)) for m in ("norm", "exact")}
-    print(f"[{tag}] fused_search_smem_bytes at d = {p_lsh.d}, K = {p_lsh.K}, L = {p_lsh.L}, "
-          f"C = {C}, steps = {LM_STEPS}: {json.dumps(smem)} (at most {_MAX_SMEM})", flush=True)
-    check(max(smem.values()) <= _MAX_SMEM, "B1/B2 cannot plan a stage at this width")
+    smem_plan(torch, tag, n_batches * LM_BATCH * LM_SEQ, width["d_model"])
 
     cfg, model, params = lm_model(torch, dev, tag, arch, width, n_layers)
     check(all(p.dtype == torch.bfloat16 for p in params.parameters() if p.dim() > 1),
@@ -2009,7 +2084,7 @@ def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_
     # configured one a prefill drops assignments that a decode keeps)
     dropless = build_model(cfg.scaled(moe_capacity_factor=float(E)))
     gaps, std = prefill_decode_gate(torch, tag, ((dropless, LM_BF16_TOL),), params,
-                                    toks[:1, :LM_CHECK_T], LM_CHECK_T)
+                                    {"tokens": toks[:1, :LM_CHECK_T]}, LM_CHECK_T)
     print(f"[{tag}] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode "
           f"(capacity factor {E}), max |dlogit| {json.dumps(gaps)} (tol {LM_BF16_TOL}); "
           f"logits std {std:.3f}", flush=True)
@@ -2083,7 +2158,7 @@ def hybrid_phase(torch, np, dev, card, phase_s) -> None:
     del full
     gaps, std = prefill_decode_gate(
         torch, tag, ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL),
-                     (model, LM_BF16_TOL)), params, prompts, HY_CACHE)
+                     (model, LM_BF16_TOL)), params, {"tokens": prompts}, HY_CACHE)
     print(f"[{tag}] ok: prefill of {HY_BATCH} x {HY_PROMPT} tokens ({prefill_ms:.1f} ms) into "
           f"{len(windowed)} rings of {w} and {len(cfg.global_layers)} global caches of "
           f"{HY_CACHE}; prefill of {HY_PROMPT} == prefill of {HY_PROMPT - 1} + one decode "
@@ -2107,6 +2182,181 @@ def hybrid_phase(torch, np, dev, card, phase_s) -> None:
           f"{HY_BATCH * HY_STEPS / sum(step_ms) * 1e3:.1f} tokens/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({phase_s():.1f} s)", flush=True)
     del caches, params
+    free_card(torch)
+
+
+def batch_serve(torch, kernels, model, params, batch, store, r0):
+    """The requests of ``batch`` (tokens (R, T) and their modality stub)
+    decoded together on the batch path (the engine serves uniform caches
+    only): one prefill, then LM_NEW - 1 greedy steps of ``model.decode``,
+    or of ``RetrievalLM.decode`` through ``store``; launch counts reset
+    just before.  Returns (tokens (R, LM_NEW), each step's top-two gaps
+    (R,) and hidden states (R, D), numbers, launches)."""
+    from repro_torch.serve import RetrievalLM
+
+    step = model.decode if store is None else RetrievalLM(model, store, r0=r0,
+                                                          steps=LM_STEPS).decode
+    R, T = batch["tokens"].shape
+    steps_ms, search_ms = [], []
+    if store is not None:
+        search = store.search
+
+        def timed_search(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = search(*a, **k)
+            torch.cuda.synchronize()
+            search_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        store.search = timed_search
+
+    def top2(scores):
+        v = torch.topk(scores.float(), 2).values
+        return (v[:, 0] - v[:, 1]).cpu()
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, hidden, caches = model.prefill(params, batch, cache_len=T + LM_NEW)
+        toks, gaps, states = [logits.argmax(-1)], [top2(logits)], [hidden[:, -1].float()]
+        for i in range(LM_NEW - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, h, caches = step(params, toks[-1], caches, T + i)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t) * 1e3)
+            check(bool(torch.isfinite(out).all()), "non-finite decode log-probabilities")
+            toks.append(out.argmax(-1))
+            gaps.append(top2(out))
+            states.append(h.float())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    if store is not None:
+        del store.search
+    return torch.stack(toks, 1).cpu(), gaps, states, {
+        "wall_s": round(wall, 3), "tokens_per_s": round(R * LM_NEW / wall, 2),
+        "step_ms_p50": round(statistics.median(steps_ms), 3),
+        "step_ms_p99": round(sorted(steps_ms)[math.ceil(0.99 * len(steps_ms)) - 1], 3),
+        "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4) if search_ms else 0.0,
+    }, {k: launched[k] for k in FUSED}
+
+
+def xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s,
+                tag: str) -> None:
+    """Phases 21 (``whisper``: Whisper-medium) and 22 (``vlm``:
+    Llama-3.2-Vision-11B): a full-width cross-attention LM (random
+    weights; the VLM's gates set to XA_GATE) and a DB-LSH datastore of its
+    decoder states, each sample with its own stub frames or image
+    embeddings; the gates of phase 17, other frames / images moving the
+    logits, and XA_REQUESTS requests served on the batch path without
+    retrieval and through the torch engine, B2 (kernel) and B1 (inline)."""
+    from repro_torch.models.registry import build_model
+
+    arch, width, n_batches, seq, extra = XA_RUNS[tag]
+    torch.cuda.reset_peak_memory_stats()
+    smem_plan(torch, tag, n_batches * LM_BATCH * seq, width["d_model"])
+    cfg, model, params = lm_model(torch, dev, tag, arch, width)
+    check(all(p.dtype == torch.float32 for p in params.parameters()), "weights not fp32")
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for c in params.cross_blocks:
+                c.gate_attn.fill_(XA_GATE)
+                c.gate_ffn.fill_(XA_GATE)
+        print(f"[{tag}] the reference draws the {len(params.cross_blocks)} cross layers' gates "
+              f"as 0 (tanh 0 = 0: the images would not count); both set to atanh(0.5) = "
+              f"{XA_GATE:.6f}", flush=True)
+    shape = (cfg.enc_seq, cfg.d_model) if extra == "frames" else (cfg.n_img_tokens,
+                                                                   cfg.d_vision)
+    ds, batch_fn, held, bd, truth, r0 = lm_datastore(torch, np, dev, tag, model, params,
+                                                     n_batches, seq=seq,
+                                                     extras={extra: shape})
+    stores = lm_stores(torch, tag, ds)
+    found, atol = heldout_gates(torch, tag, stores, held, bd, truth, r0)
+    knn_probs_gate(torch, ds, held, found, params, cfg, r0)
+
+    # gate 1, and the modality stub moving the logits
+    b0 = batch_fn(0)
+    gate_batch = {"tokens": torch.as_tensor(b0["tokens"][:1, :LM_CHECK_T], device=dev),
+                  extra: b0[extra][:1]}
+    gaps, std = prefill_decode_gate(
+        torch, tag, ((build_model(cfg.scaled(dtype="float32")), LM_FP32_TOL),
+                     (model, LM_BF16_TOL)), params, gate_batch, LM_CHECK_T)
+    with torch.inference_mode():
+        mine = model.prefill(params, gate_batch)[0].float()
+        other = model.prefill(params, {**gate_batch, extra: b0[extra][1:2]})[0].float()
+    moved = float((mine - other).abs().max())
+    check(moved > LM_BF16_TOL, f"other {extra} move the logits by {moved} only")
+    print(f"[{tag}] ok: prefill of {LM_CHECK_T} == prefill of {LM_CHECK_T - 1} + one decode, "
+          f"max |dlogit| {json.dumps(gaps)} (tol fp32 {LM_FP32_TOL}, {cfg.dtype} "
+          f"{LM_BF16_TOL}); logits std {std:.3f}; another sample's {extra} move them by "
+          f"{moved:.3f}", flush=True)
+
+    # serving: the same requests without retrieval and through each datastore
+    b1 = batch_fn(n_batches + 1)
+    batch = {"tokens": torch.as_tensor(b1["tokens"][:XA_REQUESTS, :XA_PROMPT], device=dev),
+             extra: b1[extra][:XA_REQUESTS]}
+    toks, tgaps, states, runs, path_launches = {}, {}, {}, {}, {}
+    for name in ("none", *stores):
+        toks[name], tgaps[name], states[name], runs[name], path_launches[name] = batch_serve(
+            torch, kernels, model, params, batch, None if name == "none" else stores[name], r0)
+    check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
+    check(not any(path_launches["torch"].values()) and not any(path_launches["none"].values()),
+          "the torch datastore or plain decoding launched a kernel")
+    if "inline" in stores:
+        check(path_launches["inline"]["fused_window_search"] > 0,
+              "the inline datastore never ran B1")
+    # every token of kernel / inline equals torch's; a request may part only
+    # where the two searches of that step (the same state, the same context
+    # so far) differ at near-ties of the k-th distance, or at a near-tie of
+    # the log-probabilities' top two
+    compared, parted = 0, []
+    for name in stores:
+        if name == "torch":
+            continue
+        for r in range(XA_REQUESTS):
+            diff = torch.nonzero(toks[name][r] != toks["torch"][r])
+            if not len(diff):
+                compared += LM_NEW
+                continue
+            j = int(diff[0])
+            compared += j
+            check(j > 0, f"{name}: request {r}'s first token (the prefill's) differs")
+            q = states["torch"][j][r:r + 1]
+            ties = norm_edge_ties(torch, stores[name].search(q, r0=r0, steps=LM_STEPS),
+                                  stores["torch"].search(q, r0=r0, steps=LM_STEPS), atol)
+            gap = float(tgaps["torch"][j][r])
+            check(ties or gap <= LM_BF16_TOL, f"{name}: request {r} parts from torch's at "
+                  f"token {j} with the same neighbours, at a top-two gap of {gap}")
+            parted.append((name, r, j, round(gap, 4), ties))
+    print(f"[{tag}] ok: {XA_REQUESTS} requests of {XA_PROMPT} tokens, each with its own "
+          f"{extra}, {LM_NEW} greedy new tokens on the batch path (cache "
+          f"{XA_PROMPT + LM_NEW}); {card}: {json.dumps(runs)}; launches "
+          f"{json.dumps(path_launches)}; kernel/inline equal torch's over {compared} tokens, "
+          f"parted at near-ties (store, request, token, top-two gap, differing searches): "
+          f"{parted}", flush=True)
+
+    # a request decoded alone gives its row of the batch
+    solo, sgaps, _, _, _ = batch_serve(torch, kernels, model, params,
+                                       {"tokens": batch["tokens"][:1], extra: batch[extra][:1]},
+                                       None, r0)
+    diff = torch.nonzero(solo[0] != toks["none"][0])
+    j = int(diff[0]) if len(diff) else LM_NEW
+    if j < LM_NEW:
+        gap = float(sgaps[j][0])
+        check(gap <= LM_BF16_TOL, f"request 0 alone parts from the batch at token {j}, at a "
+              f"top-two gap of {gap}")
+    print(f"[{tag}] ok: request 0 decoded alone equals its row of the batch over {j} tokens"
+          + (f", parting at a near-tie (top-two gap {gap:.4f} <= {LM_BF16_TOL})"
+             if j < LM_NEW else ""), flush=True)
+
+    path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores,
+                        held[:LM_SLOTS].contiguous(), r0, path_launches)
+    print(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"({phase_s():.1f} s)", flush=True)
+    del stores, ds, params
     free_card(torch)
 
 
@@ -3693,7 +3943,11 @@ def main() -> int:
     arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"])
     # ----------------------------------- 20. Hymba-1.5B (hybrid), batch path
     hybrid_phase(torch, np, dev, card, st["phase_s"])
-    print(f"[hymba] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
+    # ------------------ 21-22. Whisper-medium (encdec) and the VLM, batch path
+    for tag in XA_RUNS:
+        xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"],
+                    tag)
+    print(f"[vlm] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,5 +1,5 @@
-"""LM zoo on PyTorch: the decoder-only families dense, moe, ssm and hybrid
-(ROADMAP A17; encdec and vlm wait for its item 4).
+"""LM zoo on PyTorch: the decoder-only families dense, moe, ssm and hybrid,
+the encoder-decoder (Whisper) and the VLM (Llama-3.2-Vision) families.
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model

@@ -1,4 +1,4 @@
-"""GQA / MHA / sliding-window attention with KV caches.
+"""GQA / MHA / sliding-window / cross attention with KV caches.
 
 Layouts:
   activations  (B, T, D)
@@ -8,8 +8,9 @@ Layouts:
 Softmax runs in fp32 regardless of activation dtype.  On one device the
 reference's tensor-parallel layouts have no counterpart: the scores are
 always in the grouped (B, KV, G, T, S) layout, and ``mesh`` is accepted
-and ignored.  Cross attention (encoder-decoder and VLM families) is not
-here yet.
+and ignored.  Cross attention (the encoder-decoder and VLM families)
+takes its keys and values from another sequence, with no RoPE and no
+mask, and never the KV-chunked path, as the reference's.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import apply_rope, dense_init
+from .common import apply_rope, dense_init, einsum, matmul
 
 __all__ = [
     "NEG",
     "CHUNKED_THRESHOLD",
     "attn_params",
     "attention",
+    "cross_attention",
     "decode_attention",
+    "decode_cross_attention",
     "CacheSpec",
     "init_cache",
 ]
@@ -60,13 +63,13 @@ def attn_params(generator, d_model, n_heads, n_kv, head_dim, d_out=None,
 def _proj(x, w):
     """(B, T, D) x (D, H, hd) -> (B, T, H, hd), as one matrix product."""
     D, H, hd = w.shape
-    return (x @ w.reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
+    return matmul(x, w.reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
 
 
 def _out(ctx, wo):
     """(B, T, H, hd) x (H, hd, D) -> (B, T, D)."""
     H, hd, D = wo.shape
-    return ctx.reshape(*ctx.shape[:-2], H * hd) @ wo.reshape(H * hd, D)
+    return matmul(ctx.reshape(*ctx.shape[:-2], H * hd), wo.reshape(H * hd, D))
 
 
 def _qkv(x, p, kv_src=None):
@@ -80,7 +83,7 @@ def _gqa_scores(q, k):
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, T, KV, G, hd)
-    return torch.einsum("btkgh,bskh->bkgts", qg, k) / _sqrt(hd)
+    return einsum("btkgh,bskh->bkgts", qg, k) / _sqrt(hd)
 
 
 def _gqa_out(scores, v, wo):
@@ -119,7 +122,7 @@ def _kv_chunked_context(q, k, v, *, causal, window, ck=1024):
         vb = v[:, kj * ck:(kj + 1) * ck]
         krep = kb[:, :, :, None, :].expand(B, ck, KV, G, hd).reshape(B, ck, H, hd)
         vrep = vb[:, :, :, None, :].expand(B, ck, KV, G, hd).reshape(B, ck, H, hd)
-        s = torch.einsum("bthd,bshd->bhts", q, krep).float() * scale
+        s = einsum("bthd,bshd->bhts", q, krep).float() * scale
         kpos = kj * ck + torch.arange(ck, device=dev)[None, :]
         ok = (kpos < S).expand(T, ck)  # padding
         if causal:
@@ -170,6 +173,15 @@ def attention(x, p, positions, *, causal=True, window=0, rope_theta=1e4,
     scores = _gqa_scores(q, k)  # (B,KV,G,T,S)
     scores = torch.where(mask, scores, NEG)
     return _gqa_out(scores, v, p["wo"]), (k, v)
+
+
+def cross_attention(x, p, kv_src, mesh=None):
+    """Cross attention (decoder -> encoder states / image embeddings).
+    x: (B, T, D), kv_src: (B, S, D).  No RoPE on the cross projections
+    (the Whisper / Llama-Vision convention).  Returns (B, T, D) and the
+    (k, v) of kv_src, the decode caches."""
+    q, k, v = _qkv(x, p, kv_src=kv_src)
+    return _gqa_out(_gqa_scores(q, k), v, p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -228,3 +240,9 @@ def decode_attention(x1, p, cache, pos, *, window=0, rope_theta=1e4, use_rope=Tr
     scores = torch.where(mask[:, None, None, None, :], scores, NEG)
     out = _gqa_out(scores, cv, p["wo"])
     return out, {"k": ck, "v": cv}
+
+
+def decode_cross_attention(x1, p, cache):
+    """Decode-time cross attention against a precomputed (k, v) cache."""
+    q = _proj(x1, p["wq"])
+    return _gqa_out(_gqa_scores(q, cache["k"]), cache["v"], p["wo"])

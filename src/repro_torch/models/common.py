@@ -23,6 +23,9 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "cross_entropy",
+    "promoted",
+    "matmul",
+    "einsum",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -34,6 +37,30 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def pad_vocab(v: int, mult: int = 128) -> int:
     return -(-v // mult) * mult
+
+
+# ---------------------------------------------------------------------------
+# products in JAX's promoted dtype
+# ---------------------------------------------------------------------------
+
+
+def promoted(*ts: torch.Tensor) -> list:
+    """The operands in the dtype JAX gives their product, the promotion of
+    theirs (a bf16 activation times a float32 weight is a float32
+    product); ``torch.matmul``/``einsum`` refuse mixed dtypes."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t if t.dtype == dt else t.to(dt) for t in ts]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *promoted(*ops))
 
 
 # ---------------------------------------------------------------------------

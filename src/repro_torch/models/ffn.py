@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, matmul
 
 __all__ = ["dense_ffn_params", "dense_ffn", "moe_params", "moe_ffn"]
 
@@ -52,8 +52,9 @@ def _act(up, gate, kind):
 
 
 def dense_ffn(x, p, kind="swiglu"):
-    up = x @ p["w_up"]
-    return _act(up, x @ p["w_gate"] if kind == "swiglu" else None, kind) @ p["w_down"]
+    up = matmul(x, p["w_up"])
+    return matmul(_act(up, matmul(x, p["w_gate"]) if kind == "swiglu" else None, kind),
+                  p["w_down"])
 
 
 # ---------------------------------------------------------------------------

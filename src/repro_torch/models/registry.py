@@ -9,8 +9,10 @@ give ``device="meta"`` tensors, the counterpart of JAX's
 ``ShapeDtypeStruct``.  ``params_from_reference`` carries the reference's
 parameter tree (as numpy arrays) into the port.
 
-The dense, moe, ssm and hybrid families are ported; encdec and vlm
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Every family is ported: dense, moe, ssm and hybrid
+(:mod:`~repro_torch.models.transformer`), encdec
+(:mod:`~repro_torch.models.encdec`, whose batches carry ``frames``) and
+vlm (:mod:`~repro_torch.models.vlm`, whose batches carry ``images``).
 """
 
 from __future__ import annotations
@@ -23,19 +25,20 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
-from . import transformer
-from .common import DTYPES
+from . import encdec, transformer, vlm
+from .common import DTYPES, compute_dtype
 
 __all__ = ["Model", "build_model", "param_count", "params_from_reference"]
 
-# families whose layers are not ported yet, and what waits on each
-_WAITING = {
-    "encdec": "the encoder-decoder family and cross attention (ROADMAP A17, item 4)",
-    "vlm": "the VLM family and cross attention (ROADMAP A17, item 4)",
-}
+# families whose layers are not ported yet, and what waits on each: none
+_WAITING: dict[str, str] = {}
+
+# the module of each family's init_params, loss_fn, cache_spec, prefill, decode
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": transformer,
+             "hybrid": transformer, "encdec": encdec, "vlm": vlm}
 
 
-def _cast_params(params: transformer.Transformer, cfg) -> transformer.Transformer:
+def _cast_params(params: torch.nn.Module, cfg) -> torch.nn.Module:
     """Store >=2D weights in cfg.param_dtype (bf16 for the giant MoEs).
     ``transformer.init_params`` stores all but the MoE router so as it
     draws them; this casts what is left."""
@@ -57,47 +60,61 @@ class Model:
     def input_specs(self, shape: ShapeConfig, batch_override: int = 0) -> dict:
         """``device="meta"`` stand-ins for every model input of the step
         implied by shape.phase ('train' | 'prefill' | 'decode')."""
+        cfg = self.cfg
         B = batch_override or shape.global_batch
         S = shape.seq_len
 
         def sds(shp, dtype=torch.int32):
             return torch.empty(shp, dtype=dtype, device="meta")
 
+        extras = {}  # the modality stubs, in the compute dtype
+        if cfg.family == "encdec":
+            extras["frames"] = sds((B, cfg.enc_seq, cfg.d_model), compute_dtype(cfg))
+        if cfg.family == "vlm":
+            extras["images"] = sds((B, cfg.n_img_tokens, cfg.d_vision), compute_dtype(cfg))
         if shape.phase == "train":
-            return {"batch": {"tokens": sds((B, S)), "labels": sds((B, S))}}
+            return {"batch": {"tokens": sds((B, S)), "labels": sds((B, S)), **extras}}
         if shape.phase == "prefill":
-            return {"batch": {"tokens": sds((B, S))}}
+            return {"batch": {"tokens": sds((B, S)), **extras}}
         if shape.phase == "decode":
             return {"token": sds((B,)), "caches": self.cache_specs(B, S), "pos": sds(())}
         raise ValueError(shape.phase)
 
     def cache_specs(self, batch: int, seq_len: int):
-        return transformer.cache_spec(self.cfg, batch, seq_len)
+        return _FAMILIES[self.cfg.family].cache_spec(self.cfg, batch, seq_len)
 
     def init_cache(self, batch: int, seq_len: int, device=None):
         """Zero caches on ``device`` (the CUDA device when None)."""
-        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device))
+        return transformer._zeros_like_spec(self.cache_specs(batch, seq_len),
+                                            resolve_device(device))
+
+
+def _check_ported(fam: str) -> None:
+    if fam in _WAITING:
+        raise NotImplementedError(f"family {fam!r} is not ported yet: {_WAITING[fam]}")
+    if fam not in _FAMILIES:
+        raise ValueError(fam)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    fam = cfg.family
-    if fam in _WAITING:
-        raise NotImplementedError(f"family {fam!r} is not ported yet: {_WAITING[fam]}")
-    if fam not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(fam)
+    _check_ported(cfg.family)
+    mod = _FAMILIES[cfg.family]
 
     def init(generator: torch.Generator, device=None):
         device = resolve_device(device)
-        return _cast_params(transformer.init_params(generator, cfg, device), cfg)
+        return _cast_params(mod.init_params(generator, cfg, device), cfg)
+
+    def prefill(params, batch, mesh=None, cache_len=None):
+        if mod is transformer:  # the decoder-only families take the tokens alone
+            return transformer.prefill(params, batch["tokens"], cfg, mesh, cache_len)
+        return mod.prefill(params, batch, cfg, mesh, cache_len)
 
     return Model(
         cfg=cfg,
         init=init,
-        loss=lambda params, batch, mesh=None: transformer.loss_fn(params, batch, cfg, mesh),
-        prefill=lambda params, batch, mesh=None, cache_len=None: transformer.prefill(
-            params, batch["tokens"], cfg, mesh, cache_len
-        ),
-        decode=lambda params, token, caches, pos, mesh=None: transformer.decode(
+        loss=lambda params, batch, mesh=None: mod.loss_fn(params, batch, cfg, mesh),
+        prefill=prefill,
+        decode=lambda params, token, caches, pos, mesh=None: mod.decode(
             params, token, caches, pos, cfg, mesh
         ),
     )
@@ -115,23 +132,37 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> transformer.Transformer:
-    """The reference's parameter tree (nested dicts of arrays, blocks
-    stacked on a leading axis) as the port's module on ``device`` (the
-    CUDA device when None), dtypes kept."""
-    if cfg.family in _WAITING:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"{_WAITING[cfg.family]}")
-    device = resolve_device(device)
-    b = tree["blocks"]
+def _blocks(stacked: dict, n: int, device) -> list:
+    """Blocks stacked on a leading axis (the reference's scan layout) as
+    ``n`` :class:`~repro_torch.models.transformer.Block` modules."""
 
     def layer(v, i):
         if isinstance(v, dict):
             return {k: _tensor(a[i], device) for k, a in v.items()}
         return _tensor(v[i], device)
 
-    blocks = [transformer.Block(**{name: layer(v, i) for name, v in b.items()})
-              for i in range(cfg.n_layers)]
-    head = _tensor(tree["lm_head"], device) if "lm_head" in tree else None
-    return transformer.Transformer(_tensor(tree["embed"], device), blocks,
-                                   _tensor(tree["final_norm"], device), head)
+    return [transformer.Block(**{name: layer(v, i) for name, v in stacked.items()})
+            for i in range(n)]
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> torch.nn.Module:
+    """The reference's parameter tree (nested dicts of arrays, blocks
+    stacked on a leading axis) as the port's module on ``device`` (the
+    CUDA device when None), dtypes kept."""
+    _check_ported(cfg.family)
+    device = resolve_device(device)
+
+    def t(name):
+        return _tensor(tree[name], device)
+
+    if cfg.family == "encdec":
+        return encdec.EncDec(t("embed"), _blocks(tree["enc_blocks"], cfg.n_enc_layers, device),
+                             t("enc_norm"), _blocks(tree["dec_blocks"], cfg.n_layers, device),
+                             t("final_norm"))
+    if cfg.family == "vlm":
+        return vlm.VLM(t("embed"), _blocks(tree["blocks"], cfg.n_layers, device),
+                       _blocks(tree["cross_blocks"], vlm.n_groups(cfg), device),
+                       t("img_proj"), t("final_norm"), t("lm_head"))
+    head = t("lm_head") if "lm_head" in tree else None
+    return transformer.Transformer(t("embed"), _blocks(tree["blocks"], cfg.n_layers, device),
+                                   t("final_norm"), head)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rmsnorm
+from .common import dense_init, einsum, matmul, rmsnorm
 
 __all__ = ["CONV_W", "ssm_dims", "ssm_params", "ssm_forward", "ssm_decode"]
 
@@ -73,8 +73,8 @@ def _softplus(x):
 def _project(x, p, cfg):
     """x -> (z, x_raw, bc_raw, dt_raw) via the segment matrices."""
     d_inner = ssm_dims(cfg)[0]
-    zx = x @ p["w_zx"]  # (B,T,2*d_inner)
-    return zx[..., :d_inner], zx[..., d_inner:], x @ p["w_bc"], x @ p["w_dt"]
+    zx = matmul(x, p["w_zx"])  # (B,T,2*d_inner)
+    return zx[..., :d_inner], zx[..., d_inner:], matmul(x, p["w_bc"]), matmul(x, p["w_dt"])
 
 
 def _causal_conv(xBC, w, b):
@@ -151,14 +151,14 @@ def ssm_forward(x, p, cfg, chunk: int = 128, init_state=None):
         S = S * chunk_decay[:, c, :, None, None].to(S.dtype) + S_chunk[:, c]
     S_prevs = torch.stack(S_prevs, dim=1)  # (B,nc,H,N,P) state entering chunk
 
-    y_inter = torch.einsum("bcin,bchnp->bcihp", C_c, S_prevs) * torch.exp(cs)[..., None].to(dt_)
+    y_inter = einsum("bcin,bchnp->bcihp", C_c, S_prevs) * torch.exp(cs)[..., None].to(dt_)
 
     y = (y_intra + y_inter).reshape(B, T, H, P)
     y = y + p["D_skip"][None, None, :, None].to(dt_) * xh
     y = y.reshape(B, T, d_inner)
 
     y = rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    out = (y @ p["out_proj"])[:, :T0]
+    out = matmul(y, p["out_proj"])[:, :T0]
     xBC_raw = torch.cat([x_raw, bc_raw], dim=-1)  # cache layout
     if T0 >= CONV_W - 1:
         conv_tail = xBC_raw[:, T0 - (CONV_W - 1):T0, :]
@@ -178,7 +178,7 @@ def ssm_decode(x1, p, cfg, state, conv_state):
     window = torch.cat([conv_state, xBC_raw], dim=1)  # (B, CONV_W, C)
     conv_w = torch.cat([p["conv_wx"], p["conv_wbc"]], dim=-1)
     conv_b = torch.cat([p["conv_bx"], p["conv_bbc"]], dim=-1)
-    xBC = F.silu(torch.einsum("bwc,wc->bc", window, conv_w) + conv_b)[:, None, :].to(x1.dtype)
+    xBC = F.silu(einsum("bwc,wc->bc", window, conv_w) + conv_b)[:, None, :].to(x1.dtype)
     new_conv = window[:, 1:, :]
 
     xh = xBC[..., :d_inner].reshape(B, H, P)
@@ -189,8 +189,8 @@ def ssm_decode(x1, p, cfg, state, conv_state):
 
     upd = torch.einsum("bh,bn,bhp->bhnp", dt.to(x1.dtype), Bm, xh)
     state = state * dA[:, :, None, None].to(state.dtype) + upd
-    y = torch.einsum("bn,bhnp->bhp", Cm, state)
+    y = einsum("bn,bhnp->bhp", Cm, state)
     y = y + p["D_skip"][None, :, None].to(x1.dtype) * xh
     y = y.reshape(B, 1, d_inner)
     y = rmsnorm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return y @ p["out_proj"], state, new_conv
+    return matmul(y, p["out_proj"]), state, new_conv

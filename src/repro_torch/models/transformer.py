@@ -16,9 +16,14 @@ reference's key paths (``embed``, ``blocks.<i>.attn.wq``,
 ``final_norm``, ``lm_head``), one :class:`Block` per layer in an
 ``nn.ModuleList`` (the reference stacks them on a leading axis for
 ``lax.scan``; here a Python loop runs them).  Weights are stored in
-``cfg.param_dtype``, drawn in float32 and cast one tensor at a time; each
-layer casts its >=2-D float32 weights to the compute dtype ``cfg.dtype``
-as it runs.
+``cfg.param_dtype``, drawn in float32 and cast one tensor at a time.  In
+the uniform families each layer casts its >=2-D float32 weights to the
+compute dtype ``cfg.dtype`` as it runs, as the reference's scanned branch
+does; the per-layer loop of the hybrid family's windowed and global
+layers casts nothing, as the reference's does not, so each product runs
+in the promotion of its operands' dtypes (bf16 activations times float32
+weights give float32, and the residual stream is float32 from the first
+layer on).
 
 Caches are stacked (L, ...) tensors (``k``/``v`` (L, B, S, KV, hd),
 ``ssm`` (L, B, H, N, P), ``conv`` (L, B, CONV_W - 1, conv_dim)) when every
@@ -158,10 +163,12 @@ def init_params(generator, cfg, device=None) -> Transformer:
 def _layer_params(module: nn.Module, dt) -> dict:
     """A layer's weights as the reference's dict, >=2-D float32 weights
     cast to the compute dtype, and lower-precision ones to a float32
-    compute dtype (where JAX promotes them in each product, exactly)."""
+    compute dtype (where JAX promotes them in each product, exactly);
+    ``dt`` None casts nothing."""
     out = {}
     for name, p in module.named_parameters(recurse=False):
-        cast = p.dim() > 1 and p.dtype != dt and torch.float32 in (p.dtype, dt)
+        cast = (dt is not None and p.dim() > 1 and p.dtype != dt
+                and torch.float32 in (p.dtype, dt))
         out[name] = p.to(dt) if cast else p
     for name, child in module.named_children():
         out[name] = _layer_params(child, dt)
@@ -248,7 +255,8 @@ def forward(params: Transformer, tokens, cfg, mesh=None, *, want_cache=False, re
     lb = torch.zeros((), device=x.device)
     for li, block in enumerate(params.blocks):
         window = cfg.sliding_window if uniform else _layer_window(cfg, li)
-        x, cache, aux = block_forward(x, _layer_params(block, dt), cfg, mesh,
+        # the per-layer loop keeps the weights as stored (see the module doc)
+        x, cache, aux = block_forward(x, _layer_params(block, dt if uniform else None), cfg, mesh,
                                       positions=positions, window=window,
                                       want_cache=want_cache)
         caches.append(cache)
@@ -309,9 +317,12 @@ def cache_spec(cfg, batch, seq_len):
 
 
 def _zeros_like_spec(spec, device):
+    """Zero tensors in the shapes and dtypes of a (nested) cache spec."""
     if isinstance(spec, list):
         return [_zeros_like_spec(s, device) for s in spec]
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device) for k, s in spec.items()}
+    if isinstance(spec, dict):
+        return {k: _zeros_like_spec(s, device) for k, s in spec.items()}
+    return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
 
 
 def init_cache(cfg, batch, seq_len, device=None):
@@ -351,8 +362,8 @@ def decode(params: Transformer, token, caches, pos, cfg, mesh=None):
             cache, window = {name: c[li] for name, c in caches.items()}, cfg.sliding_window
         else:
             cache, window = caches[li], _layer_window(cfg, li)
-        x, nc = block_decode(x, _layer_params(block, dt), cfg, cache, pos, window=window,
-                             mesh=mesh)
+        x, nc = block_decode(x, _layer_params(block, dt if uniform else None), cfg, cache,
+                             pos, window=window, mesh=mesh)
         new_caches.append(nc)
     if uniform:
         new_caches = _stack(new_caches)

@@ -485,14 +485,19 @@ class integer_projections:
         return False
 
 
-def ref_exports(module: str) -> list[str]:
+def ref_exports(module: str, defined: bool = False) -> list[str]:
     """``__all__`` of the reference module ``repro.<module>`` (``""``: the
     package itself); a package without one (``repro.serve``) exports the
-    public names it imports, its submodules aside."""
+    public names it imports, its submodules aside.  ``defined``: the
+    public functions and classes the module defines itself (for a module
+    without ``__all__`` whose imports are helpers, ``repro.models.vlm``)."""
     import importlib
     import types
 
     mod = importlib.import_module("repro" + (f".{module}" if module else ""))
+    if defined:
+        return [n for n, v in vars(mod).items()
+                if not n.startswith("_") and getattr(v, "__module__", None) == mod.__name__]
     if hasattr(mod, "__all__"):
         return list(mod.__all__)
     return [n for n, v in vars(mod).items()
@@ -743,14 +748,16 @@ def ref_configs():
 
 class RefLM:
     """A reference model, ``build_model(get_config(arch).smoke().scaled(
-    n_layers=2, **scaled))`` initialised from ``jax.random.key(seed)``;
-    every method takes and returns numpy arrays (caches as numpy trees)."""
+    n_layers=2, **scaled))`` (``scaled`` may set n_layers) initialised
+    from ``jax.random.key(seed)``; every method takes and returns numpy
+    arrays (caches as numpy trees).  ``extras`` are the encoder-decoder's
+    ``frames`` or the VLM's ``images``."""
 
     def __init__(self, arch: str, seed: int = 0, **scaled):
         from repro.configs import get_config
         from repro.models.registry import build_model
 
-        self.cfg = get_config(arch).smoke().scaled(n_layers=2, **scaled)
+        self.cfg = get_config(arch).smoke().scaled(**{"n_layers": 2, **scaled})
         self.model = build_model(self.cfg)
         self.params = self.model.init(jax.random.key(seed))
 
@@ -758,18 +765,29 @@ class RefLM:
     def tree(self) -> dict:
         return _np_tree(self.params)
 
-    def loss(self, tokens, labels):
-        """(loss, hidden) of the teacher-forced pass, and the logits."""
+    def set_tree(self, tree: dict) -> None:
+        """Run on the numpy parameter tree ``tree`` from now on."""
+        self.params = _jnp_tree(tree)
+
+    def head(self, hidden):
+        """The family's logits of ``hidden`` (numpy or JAX)."""
         from repro.models import transformer
 
-        loss, metrics = self.model.loss(self.params, {"tokens": jnp.asarray(tokens),
-                                                      "labels": jnp.asarray(labels)})
-        logits = transformer.logits_fn(self.params, metrics["hidden"], self.cfg)
-        return float(loss), np.asarray(metrics["hidden"]), np.asarray(logits)
+        if self.cfg.family == "encdec":  # the tied embedding, whatever the config says
+            return np.asarray(jnp.einsum("btd,vd->btv", jnp.asarray(hidden),
+                                         self.params["embed"]))
+        return np.asarray(transformer.logits_fn(self.params, jnp.asarray(hidden), self.cfg))
 
-    def prefill(self, tokens, cache_len=None):
-        out = self.model.prefill(self.params, {"tokens": jnp.asarray(tokens)},
-                                 cache_len=cache_len)
+    def loss(self, tokens, labels, **extras):
+        """(loss, hidden) of the teacher-forced pass, and the logits."""
+        batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+                 **{k: jnp.asarray(v) for k, v in extras.items()}}
+        loss, metrics = self.model.loss(self.params, batch)
+        return float(loss), np.asarray(metrics["hidden"]), self.head(metrics["hidden"])
+
+    def prefill(self, tokens, cache_len=None, **extras):
+        batch = {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in extras.items()}}
+        out = self.model.prefill(self.params, batch, cache_len=cache_len)
         return _np_tree(out)
 
     def decode(self, token, caches, pos):
@@ -800,6 +818,12 @@ class RefLM:
 
         return RetrievalLM(self.model, ds, r0=r0, steps=steps)
 
+    def retrieval_decode(self, rlm, token, caches, pos):
+        """One ``RetrievalLM.decode`` step of the reference (the batch path)."""
+        out = rlm.decode(self.params, jnp.asarray(token), _jnp_tree(caches),
+                         jnp.asarray(pos, jnp.int32))
+        return _np_tree(out)
+
 
 class ref_chunked_threshold:
     """Inside the block the reference's attention takes its KV-chunked path
@@ -829,11 +853,60 @@ def ref_kv_chunked_context(q, k, v, *, causal, window, ck):
                                           causal=causal, window=window, ck=ck))
 
 
-def ref_token_batch(vocab: int, seq_len: int, batch: int, seed: int, step: int):
-    """``make_batch_fn(SyntheticTokens(...))(step)`` of the reference."""
+def ref_token_batch(vocab: int, seq_len: int, batch: int, seed: int, step: int, extras=None):
+    """``make_batch_fn(SyntheticTokens(...), extras)(step)`` of the reference."""
     from repro.data.pipeline import SyntheticTokens, make_batch_fn
 
-    return make_batch_fn(SyntheticTokens(vocab, seq_len, batch, seed=seed))(step)
+    return make_batch_fn(SyntheticTokens(vocab, seq_len, batch, seed=seed), extras)(step)
+
+
+def ref_cross_attention(x, p, kv_src):
+    """``attention.cross_attention``: (out, (k, v))."""
+    from repro.models import attention
+
+    return _np_tree(attention.cross_attention(jnp.asarray(x), _jnp_tree(p), jnp.asarray(kv_src)))
+
+
+def ref_decode_cross_attention(x1, p, cache):
+    from repro.models import attention
+
+    return np.asarray(attention.decode_cross_attention(jnp.asarray(x1), _jnp_tree(p),
+                                                       _jnp_tree(cache)))
+
+
+def ref_sinusoid(T: int, D: int, offset: int = 0):
+    from repro.models import encdec
+
+    return np.asarray(encdec.sinusoid(T, D, offset))
+
+
+def ref_sinusoid_at(pos, D: int):
+    from repro.models import encdec
+
+    return np.asarray(encdec.sinusoid_at(jnp.asarray(pos), D))
+
+
+def ref_encode(lm: "RefLM", frames):
+    """``encdec.encode`` of ``lm``'s parameters on ``frames``."""
+    from repro.models import encdec
+
+    return np.asarray(encdec.encode(lm.params, jnp.asarray(frames), lm.cfg))
+
+
+def ref_model_specs(arch: str, shape: str, batch: int, seq_len: int):
+    """The reference's ``input_specs`` (prefill and train) and
+    ``cache_specs`` of ``arch``'s smoke config, as (shape, dtype name)
+    trees."""
+    from repro.configs import SHAPES, get_config
+    from repro.models.registry import build_model
+
+    model = build_model(get_config(arch).smoke())
+
+    def plain(tree):
+        return jax.tree.map(lambda s: (tuple(s.shape), jnp.dtype(s.dtype).name), tree)
+
+    return {"inputs": plain(model.input_specs(SHAPES[shape], batch)),
+            "caches": plain(model.cache_specs(batch, seq_len))}
 
 
 def ref_knn_probs(ds, queries, vocab: int, r0: float, steps: int):

@@ -127,6 +127,19 @@ for r in reqs:
     eng.submit(r)
 eng.run()
 assert all(r.done and len(r.output) == 3 for r in reqs)
+for arch, extra in (("whisper-medium", "frames"), ("llama-3.2-vision-11b", "images")):
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg)
+    lm = model.init(gen, device="cpu")
+    shape = (cfg.enc_seq, cfg.d_model) if extra == "frames" else (cfg.n_img_tokens, cfg.d_vision)
+    batches = [make_batch_fn(SyntheticTokens(cfg.vocab_size, 16, 2), {extra: shape})(0)]
+    ds = build_datastore(model, lm, batches, gen, t=16, k=4, block_size=32, device="cpu")
+    b = batches[0]
+    _, _, caches = model.prefill(lm, {"tokens": b["tokens"][:, :8], extra: b[extra]},
+                                 cache_len=12)
+    logp, _, _ = RetrievalLM(model, ds, r0=0.5, steps=4).decode(
+        lm, torch.as_tensor(b["tokens"][:, 8]), caches, 8)
+    assert logp.shape == (2, cfg.padded_vocab) and torch.isfinite(logp).all()
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)

@@ -11,7 +11,10 @@ load-balance term), prefill logits and caches, and decode steps agree
 within rtol = atol = 1e-4 (the two frameworks sum the matrix products in
 different orders; at this width that moves the fp32 outputs by ~1e-6).
 The MoE FFN is also held against the reference where its capacity drops
-assignments and at Kimi's top-8.
+assignments and at Kimi's top-8, and the hybrid family in bf16 (float32
+weights) against the reference's promotion of each product.  The
+encoder-decoder and VLM families have files of their own
+(test_torch_encdec.py, test_torch_vlm.py); here they are built.
 """
 
 import dataclasses
@@ -282,10 +285,23 @@ def test_init_follows_the_reference_rules():
 
 
 @pytest.mark.parametrize("arch", sorted(a for a in CONFIGS if a not in DENSE + FAMILIES))
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP A17, item 4"):
-        build_model(cfg)
+def test_cross_attention_families_build_and_carry_across(arch):
+    """whisper-medium (encdec) and llama-3.2-vision-11b (vlm), the last
+    families to wait: ``build_model`` draws them, ``params_from_reference``
+    carries the reference's tree across with every leaf, and both modules
+    have the same parameters by name and shape.  test_torch_encdec.py and
+    test_torch_vlm.py hold them against the reference."""
+    from repro_torch.models import registry
+
+    assert not registry._WAITING
+    ref = R.RefLM(arch)
+    cfg = get_config(arch).smoke().scaled(n_layers=2)
+    model = build_model(cfg)
+    params = params_from_reference(ref.tree, cfg, device=CPU)
+    assert param_count(params) == sum(a.size for a in _leaves(ref.tree))
+    drawn = model.init(torch.Generator().manual_seed(0), device=CPU)
+    assert {n: tuple(t.shape) for n, t in drawn.named_parameters()} == \
+        {n: tuple(t.shape) for n, t in params.named_parameters()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,6 +397,61 @@ def test_hybrid_window_ring(T_prompt):
         w_logits, _, ref_caches = ref.decode(tok, ref_caches, T_prompt + i)
         logits, _, caches = model.decode(params, torch.from_numpy(tok), caches, T_prompt + i)
         _close(logits, w_logits)
+        _caches_close(caches, ref_caches)
+        tok = np.argmax(w_logits, axis=-1).astype(np.int32)
+
+
+def _dtype_name(t):
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _same_dtypes(got, want):
+    """The port's caches (per layer) in the reference's dtypes, leaf by leaf."""
+    assert [{k: _dtype_name(v) for k, v in c.items()} for c in got] == \
+        [{k: v.dtype.name for k, v in c.items()} for c in want]
+
+
+def test_hybrid_bf16_promotes_as_the_reference():
+    """Hymba's smoke config in bf16 with float32 weights takes the per-layer
+    loop (window 8, layer 0 global), where the reference casts no weight:
+    each product runs in the promotion of its operands (bf16 x float32 ->
+    float32), so from layer 0's residual on the stream is float32.  The
+    port's hidden state, logits, prefill caches and three decode steps
+    have the reference's dtypes and agree within TOL (rtol = atol = 1e-4);
+    a port that casts the weights to bf16 is 0.01-0.06 off."""
+    ref = R.RefLM("hymba-1.5b", dtype="bfloat16")
+    cfg = ref.cfg
+    assert cfg.param_dtype == "float32" and cfg.sliding_window and cfg.global_layers
+    model = build_model(cfg)
+    params = params_from_reference(ref.tree, cfg, device=CPU)
+    toks, labels = _tokens(cfg, 1), _tokens(cfg, 2)
+    want_loss, want_hidden, want_logits = ref.loss(toks, labels)
+    loss, metrics = model.loss(params, {"tokens": torch.from_numpy(toks),
+                                        "labels": torch.from_numpy(labels)})
+    from repro_torch.models.transformer import logits_fn
+
+    logits = logits_fn(params, metrics["hidden"], cfg)
+    assert _dtype_name(metrics["hidden"]) == want_hidden.dtype.name
+    assert _dtype_name(logits) == want_logits.dtype.name
+    _close(metrics["hidden"], want_hidden)
+    _close(logits, want_logits)
+    assert abs(float(loss) - want_loss) <= 1e-4 * abs(want_loss)
+
+    want = ref.prefill(toks, cache_len=T + 4)
+    logits, hidden, caches = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                           cache_len=T + 4)
+    _close(logits, want[0])
+    _close(hidden, want[1])
+    _same_dtypes(caches, want[2])
+    _caches_close(caches, want[2])
+    ref_caches, tok = want[2], np.argmax(want[0], axis=-1).astype(np.int32)
+    for i in range(3):
+        w_logits, w_hidden, ref_caches = ref.decode(tok, ref_caches, T + i)
+        logits, hidden, caches = model.decode(params, torch.from_numpy(tok), caches, T + i)
+        assert _dtype_name(logits) == w_logits.dtype.name
+        _close(logits, w_logits)
+        _close(hidden, w_hidden)
+        _same_dtypes(caches, ref_caches)
         _caches_close(caches, ref_caches)
         tok = np.argmax(w_logits, axis=-1).astype(np.int32)
 

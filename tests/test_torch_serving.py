@@ -328,6 +328,59 @@ def test_greedy_family_engine_matches_reference(carried_family, retrieval):
     assert [r.output for r in got] == want
 
 
+@pytest.mark.parametrize("arch,extra", [("whisper-medium", "frames"),
+                                        ("llama-3.2-vision-11b", "images")])
+def test_batch_path_retrieval_matches_reference(arch, extra):
+    """The encoder-decoder and VLM families, which the engine refuses (as
+    the reference's does), on the batch path: ``build_datastore`` over
+    batches that carry ``frames`` / ``images`` (numpy, from
+    ``make_batch_fn(src, extras)``, equal to the reference's) collects the
+    reference's keys; with the reference's index carried across, a prefill
+    and three ``RetrievalLM.decode`` steps teacher-forced along a corpus
+    sequence (so each step finds its own key) give the reference's
+    log-probabilities, hidden states and greedy tokens.  The VLM's gates
+    are set to 0.5 on both sides, so that its images count."""
+    ref = R.RefLM(arch)
+    cfg = ref.cfg
+    if extra == "images":
+        tree = ref.tree
+        for g in ("gate_attn", "gate_ffn"):
+            tree["cross_blocks"][g] = np.full_like(tree["cross_blocks"][g], 0.5)
+        ref.set_tree(tree)
+    model = build_model(cfg)
+    params = params_from_reference(ref.tree, cfg, device=CPU)
+    with pytest.raises(AssertionError, match="batch path"):
+        ServeEngine(model, params, device=CPU)
+    shape = (cfg.enc_seq, cfg.d_model) if extra == "frames" else (cfg.n_img_tokens, cfg.d_vision)
+    batches = [R.ref_token_batch(cfg.vocab_size, 16, 2, 1, s, {extra: shape}) for s in range(3)]
+    mine = make_batch_fn(SyntheticTokens(cfg.vocab_size, 16, 2, seed=1), {extra: shape})(2)
+    assert all(np.array_equal(mine[k], batches[2][k]) for k in ("tokens", "labels", extra))
+    rds = ref.datastore(batches, 5, t=16, k=4, block_size=32, lam=0.5)
+    ds = build_datastore(model, params, batches, torch.Generator().manual_seed(5), t=16, k=4,
+                         block_size=32, lam=0.5, device=CPU)
+    ref_arrays = R.index_arrays(rds.index)
+    np.testing.assert_allclose(ds.index.data.numpy(), ref_arrays["data"], rtol=1e-4, atol=1e-4)
+    assert np.array_equal(ds.values.numpy(), np.asarray(rds.values))
+    carried_ds = Datastore.from_index(from_arrays(ref_arrays, R.index_params(rds.index),
+                                                  device=CPU),
+                                      np.asarray(rds.values), temperature=10.0, lam=0.5, k=4)
+    rlm, lm = ref.retrieval(rds, 1.0, 4), RetrievalLM(model, carried_ds, r0=1.0, steps=4)
+    seq, side = batches[1]["tokens"], batches[1][extra]
+    want = ref.prefill(seq[:, :8], cache_len=12, **{extra: side})
+    _, _, caches = model.prefill(params, {"tokens": seq[:, :8], extra: side}, cache_len=12)
+    ref_caches = want[2]
+    for i in range(3):
+        tok = seq[:, 8 + i]
+        w_logp, w_hidden, ref_caches = ref.retrieval_decode(rlm, tok, ref_caches, 8 + i)
+        logp, hidden, caches = lm.decode(params, torch.from_numpy(tok), caches, 8 + i)
+        np.testing.assert_allclose(hidden.numpy(), w_hidden, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(logp.numpy(), w_logp, rtol=1e-4, atol=1e-4)
+        assert np.array_equal(logp.argmax(-1).numpy(), w_logp.argmax(-1))
+        plain = torch.log_softmax(model.decode(params, torch.from_numpy(tok), caches, 8 + i)[0],
+                                  -1)
+        assert float((plain - logp).abs().max()) > 1e-2  # the neighbours moved the distribution
+
+
 def test_datastore_search_uses_cache():
     """tests/test_store_scheduler.py::test_datastore_search_uses_cache:
     repeated hidden-state queries hit the shared cache; a collection

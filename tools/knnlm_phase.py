@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The LM phases of ``chip_smoke.py`` alone, in a fresh process on one GPU:
 17 (kNN-LM serving with a full-width Yi-9B), 18 (the same with
-Mamba2-1.3B), 19 (Arctic-480B at full width, 2 layers) and 20 (Hymba-1.5B
-on the batch path).
+Mamba2-1.3B), 19 (Arctic-480B at full width, 2 layers), 20 (Hymba-1.5B
+on the batch path), 21 (kNN-LM with Whisper-medium on the batch path) and
+22 (the same with Llama-3.2-Vision-11B).
 
-    PYTHONPATH=src python3 tools/knnlm_phase.py [--phases 17 18 19 20] [--profile-first]
+    PYTHONPATH=src python3 tools/knnlm_phase.py [--phases 17 18 19 20 21 22] [--profile-first]
 
 Builds the kernels, then runs each phase with its gates and prints its
 lines and the kernel records (``<wrapper>@<tag>``).  A phase that fails
@@ -30,7 +31,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", type=int, nargs="+", default=[17], choices=(17, 18, 19, 20))
+    ap.add_argument("--phases", type=int, nargs="+", default=[17],
+                    choices=(17, 18, 19, 20, 21, 22))
     ap.add_argument("--profile-first", action="store_true",
                     help="open a torch.profiler session with CUDA activity first")
     args = ap.parse_args()
@@ -77,6 +79,9 @@ def main() -> int:
         19: lambda: chip_smoke.arctic_phase(torch, np, dev, card, kernels, wrappers, twins,
                                             records, phase_s),
         20: lambda: chip_smoke.hybrid_phase(torch, np, dev, card, phase_s),
+        **{n: (lambda tag=tag: chip_smoke.xattn_phase(torch, np, dev, card, kernels, wrappers,
+                                                      twins, records, phase_s, tag))
+           for n, tag in zip((21, 22), chip_smoke.XA_RUNS)},
     }
     for n in args.phases:
         try:

@@ -285,7 +285,27 @@ Phases, each printing a line (with its seconds) when it passes:
                  d = 4096), images in place of frames; records
                  ``<wrapper>@vlm``.
 
-Each of phases 17-22 frees its model before the next starts and prints
+23. train       — training (``train_phase``): (a) minicpm-2b at its published
+                 width and depth (40 layers x 2304, 36 heads of 64, d_ff 5760,
+                 vocab 122753 tied; fp32 weights, bf16 compute), AdamW from
+                 ``make_optimizer``, 8 steps of 2 x 4096 tokens with
+                 accum_steps 2, each layer rematerialised, through
+                 ``make_train_step``: every loss finite, the first within (0.5,
+                 3) x ln V (tests/test_arch_smoke.py's band); step ms p50/p99,
+                 tokens/s, the model-FLOPs share of the dense bf16 peak, the
+                 AdamW update's ms and the peak memory; (b) the same width cut
+                 to 2 layers: gradients with remat on and off torch.equal,
+                 accum_steps 2 vs 1 on the same batch (TRAIN_ACCUM_TOL), one
+                 fp32 step (TF32 off) of 2 x 256 tokens on the card against the
+                 port's CPU step on the same weights (params, m and v within
+                 TRAIN_FP32_TOL), the loss falling by more than 0.1 over 20
+                 steps on 2 alternating batches, and ``TrainSupervisor`` with a
+                 failure at step 7 (checkpoints every 5 under build/, 12 steps)
+                 torch.equal to an uninterrupted run, with its save and
+                 restore seconds; (c) ``launch.train.main`` with ``--smoke`` for
+                 20 steps.
+
+Each of phases 17-23 frees its model before the next starts and prints
 its peak memory.  Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -297,6 +317,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -416,6 +437,35 @@ XA_REQUESTS, XA_PROMPT = 4, 64
 # phase 22: the reference draws every cross layer's gates as 0, and tanh(0) = 0
 # makes a drawn model ignore its images; tanh(XA_GATE) = 0.5
 XA_GATE = math.atanh(0.5)
+# phase 23: training MiniCPM-2B at its published width and depth (fp32 weights,
+# bf16 compute, AdamW): 2 x 4096 tokens a step (train_4k's sequence length) in
+# 2 microbatches, each layer rematerialised
+TRAIN = ("minicpm-2b", dict(n_layers=40, d_model=2304, n_heads=36, n_kv_heads=36, hd=64,
+                            d_ff=5760, vocab_size=122753, tie_embeddings=True))
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 2, 8
+TRAIN_LR = (3e-4, 2, 100)  # cosine_schedule(peak, warmup, total)
+# (b): the full width cut to 2 of 40 layers (0.405 B parameters, 4.9 GB a
+# checkpoint); its fp32 card-vs-CPU step, descent and restart run 2 x 256 tokens
+TRAIN_CUT, TRAIN_SMALL_SEQ = 2, 256
+# descent: tests/test_training.py's gate (the loss falls by more than 0.1 over
+# 20 steps on 2 alternating batches) at a tenth of its peak rate, 1e-2 there
+# being for d_model 64
+TRAIN_DESCENT = (20, (1e-3, 5, 200))
+# accum_steps 2 vs 1 on the same batch in bf16 compute: each microbatch's
+# weight gradients are rounded to bf16 before they are summed (relative L2)
+TRAIN_ACCUM_TOL = 2e-2
+# one fp32 step on the card (TF32 off) vs the port's CPU step: the products
+# sum in other orders (~1e-6 relative), so m and v agree within
+# TRAIN_FP32_TOL (relative L2).  Adam's first step moves each parameter by
+# lr * g / (|g| + 1e-8), about lr in the sign of g whatever its size: where g
+# is at the two devices' rounding noise the sign may differ (a move of up to
+# 2 lr); where |g| > TRAIN_FP32_G a relative change d of g moves the step by
+# at most lr * 1e-2 * d, so the parameters agree within TRAIN_FP32_UTOL x lr
+# (d up to 1e-2, the small gradients' summation noise) and two float32 ulps
+# of the parameter
+TRAIN_FP32_TOL, TRAIN_FP32_G, TRAIN_FP32_UTOL = 1e-4, 1e-6, 1e-4
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY, TRAIN_SUP_STEPS = 7, 5, 12
+TRAIN_LAUNCH_STEPS = 20  # (c): launch.train --smoke
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2185,6 +2235,278 @@ def hybrid_phase(torch, np, dev, card, phase_s) -> None:
     free_card(torch)
 
 
+def rel_l2(np, got, want) -> float:
+    """|got - want| / |want| over two trees of arrays (the largest leaf's)."""
+    if isinstance(want, dict):
+        return max((rel_l2(np, got[k], want[k]) for k in want), default=0.0)
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-300))
+
+
+def params_leaves(*trees, path=""):
+    """(path, leaf of each tree) over nested dicts of arrays."""
+    if isinstance(trees[0], dict):
+        for k in trees[0]:
+            yield from params_leaves(*(t[k] for t in trees), path=f"{path}.{k}".lstrip("."))
+        return
+    yield (path, *trees)
+
+
+def timed_optimizer(torch, opt, ms: list):
+    """``opt`` whose update appends its device-synchronised ms to ``ms``."""
+    from repro_torch.train.optimizer import Optimizer
+
+    def update(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = opt.update(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return Optimizer(opt.init, update)
+
+
+def train_phase(torch, np, dev, card, phase_s) -> None:
+    """Phase 23: training.  (a) MiniCPM-2B at its published width and
+    depth, 8 AdamW steps of 2 x 4096 tokens in 2 microbatches through
+    ``make_train_step``; (b) the width cut to 2 layers: remat on / off,
+    accum 2 / 1, an fp32 step on the card against the CPU's, descent, and
+    a supervised restart; (c) ``launch.train.main`` with ``--smoke``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import transformer
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.models.registry import (build_model, param_count,
+                                             train_state_from_reference,
+                                             train_state_to_reference)
+    from repro_torch.runtime import TrainSupervisor
+    from repro_torch.runtime.fault_tolerance import state_tree
+    from repro_torch.train import init_train_state, make_optimizer, make_train_step
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.train_step import deterministic
+
+    tag = "train"
+    arch, width = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    check(all(getattr(cfg, k) == v for k, v in width.items()),
+          f"{arch} is not at its published width {width}")
+    model = build_model(cfg)
+    update_ms = []
+    opt = timed_optimizer(torch, make_optimizer("adamw", cosine_schedule(*TRAIN_LR)), update_ms)
+    state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    n_params = param_count(state["params"])
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    batches = make_batch_fn(SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    step = make_train_step(model, opt, accum_steps=TRAIN_ACCUM)
+    losses, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        batch = batches(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        check(math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"])),
+              f"step {s}: loss {loss}, grad norm {float(metrics['grad_norm'])}")
+    ln_v = math.log(cfg.vocab_size)
+    check(0.5 * ln_v < losses[0] < 3.0 * ln_v,
+          f"first loss {losses[0]:.4f} outside (0.5, 3) x ln V = {ln_v:.3f}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs of a step: 6 N a token (N counts the tied embedding once:
+    # the lookup is free, the head's product is not) plus 12 L d T a token for
+    # the scores and the context (PaLM's count, the causal half not taken
+    # off); the recompute of remat is not counted
+    flops = tokens * (6 * n_params + 12 * cfg.n_layers * cfg.d_model * TRAIN_SEQ)
+    steady = step_ms[1:]
+    p50 = float(np.percentile(steady, 50))
+    print(f"[{tag}] ok: {arch}, {cfg.n_layers} layers x {cfg.d_model} (fp32 weights, "
+          f"{cfg.dtype} compute): {TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(accum_steps {TRAIN_ACCUM}, remat) on {n_params:,} parameters (train state "
+          f"{state_gb:.1f} GB); losses {json.dumps([round(x, 4) for x in losses])} (first in "
+          f"(0.5, 3) x ln V); {card}: step ms p50 {p50:.1f}, p99 "
+          f"{float(np.percentile(steady, 99)):.1f} (steps 2-{TRAIN_STEPS}; the first "
+          f"{step_ms[0]:.1f}), {tokens / p50 * 1e3:.1f} tokens/s, model FLOPs "
+          f"{flops:.4g} a step = {flops / (p50 / 1e3) / PEAK_OPS['bf16']:.4f} of the dense bf16 "
+          f"peak; AdamW update ms p50 {float(np.percentile(update_ms, 50)):.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({phase_s():.1f} s)", flush=True)
+    del state, step, opt
+    free_card(torch)
+
+    # ---------------------------- (b) the full width, 2 of its 40 layers
+    torch.cuda.reset_peak_memory_stats()
+    cut = cfg.scaled(n_layers=TRAIN_CUT)
+    model = build_model(cut)
+    adamw = make_optimizer("adamw", cosine_schedule(*TRAIN_LR))
+    state = init_train_state(model, adamw, torch.Generator(device=dev).manual_seed(1))
+    params = state["params"]
+    batch = batches(0)
+
+    def grads(remat=True, accum=1):
+        """(loss, gradients) of ``batch``, the microbatches' gradients summed
+        in place and scaled as ``make_train_step`` does."""
+        for p in params.parameters():
+            p.grad = None
+        total = 0.0
+        with deterministic():
+            for i in range(accum):
+                rows = slice(i * TRAIN_BATCH // accum, (i + 1) * TRAIN_BATCH // accum)
+                mb = {k: v[rows] for k, v in batch.items()}
+                hidden, _, _ = transformer.forward(params, mb["tokens"], cut, remat=remat)
+                logits = transformer.logits_fn(params, hidden, cut)
+                loss = cross_entropy(logits, torch.as_tensor(mb["labels"], device=dev),
+                                     cut.vocab_size)
+                loss.backward()
+                total = total + loss.detach()
+                del hidden, logits, loss
+        out = {n: p.grad.detach().clone() / accum for n, p in params.named_parameters()}
+        return float(total) / accum, out
+
+    loss_on, g_on = grads(remat=True)
+    peak_remat = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_off, g_off = grads(remat=False)
+    peak_plain = torch.cuda.max_memory_allocated()
+    check(loss_on == loss_off and all(torch.equal(g_on[n], g_off[n]) for n in g_on),
+          "remat on and off give other gradients")
+    del g_off
+    loss_acc, g_acc = grads(accum=2)
+    acc_err = rel_l2(np, {n: g.float().cpu().numpy() for n, g in g_acc.items()},
+                     {n: g.float().cpu().numpy() for n, g in g_on.items()})
+    check(abs(loss_acc - loss_on) <= 1e-3 * abs(loss_on) and acc_err <= TRAIN_ACCUM_TOL,
+          f"accum 2 vs 1: loss {loss_acc} vs {loss_on}, gradients {acc_err}")
+    del g_on, g_acc
+    for p in params.parameters():
+        p.grad = None
+    print(f"[{tag}] ok: {arch} at its width, {TRAIN_CUT} of {cfg.n_layers} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: remat on / off gradients torch.equal (peak "
+          f"memory {peak_remat / 1e9:.1f} / {peak_plain / 1e9:.1f} GB); accum_steps 2 vs 1: "
+          f"loss {loss_acc:.6f} vs {loss_on:.6f}, gradients {acc_err:.3g} apart in relative "
+          f"L2 (tol {TRAIN_ACCUM_TOL})", flush=True)
+
+    # one fp32 step (TF32 off) on the card against the port's CPU step
+    f32 = cut.scaled(dtype="float32")
+    small = make_batch_fn(SyntheticTokens(cfg.vocab_size, TRAIN_SMALL_SEQ, TRAIN_BATCH,
+                                          seed=SEED + 1))
+    tree = train_state_to_reference(state)
+    on_cpu = train_state_from_reference(tree, f32, device="cpu")
+    step32 = make_train_step(build_model(f32), adamw)
+    state, m_card = step32(state, small(0))
+    t0 = time.perf_counter()
+    on_cpu, m_cpu = step32(on_cpu, small(0))
+    cpu_s = time.perf_counter() - t0
+    got, want = train_state_to_reference(state), train_state_to_reference(on_cpu)
+    errs = {k: rel_l2(np, got["opt"][k], want["opt"][k]) for k in ("m", "v")}
+    lr1 = float(m_card["lr"])
+    flipped, moved, seen = 0, 0.0, 0
+    for path, g_p, w_p, w_m in params_leaves(got["params"], want["params"], want["opt"]["m"]):
+        w_p = np.asarray(w_p, np.float64)
+        diff = np.abs(np.asarray(g_p, np.float64) - w_p)
+        big = np.abs(w_m) > 0.1 * TRAIN_FP32_G  # m = 0.1 g after one step
+        check(float(diff.max()) <= 2.0001 * lr1,
+              f"fp32 step: {path} moved {float(diff.max())} apart (2 lr = {2 * lr1})")
+        tol = TRAIN_FP32_UTOL * lr1 + 2.0 ** -22 * np.abs(w_p)
+        check(bool((diff[big] <= tol[big]).all()),
+              f"fp32 step: {path} {float(diff[big].max())} apart where |g| > {TRAIN_FP32_G}")
+        if big.any():
+            moved = max(moved, float(diff[big].max()) / lr1)
+        flipped += int((diff > tol).sum())
+        seen += diff.size
+    check(abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5 * float(m_cpu["loss"])
+          and max(errs.values()) <= TRAIN_FP32_TOL,
+          f"fp32 step: card {float(m_card['loss'])} vs CPU {float(m_cpu['loss'])}, {errs}")
+    del tree, on_cpu, got, want
+    print(f"[{tag}] ok: one fp32 AdamW step of {TRAIN_BATCH} x {TRAIN_SMALL_SEQ} tokens on the "
+          f"card (TF32 off) vs the CPU ({cpu_s:.1f} s): loss {float(m_card['loss']):.6f} vs "
+          f"{float(m_cpu['loss']):.6f}; m, v {errs['m']:.3g}, {errs['v']:.3g} apart in relative "
+          f"L2 (tol {TRAIN_FP32_TOL}); params where |g| > {TRAIN_FP32_G} within {moved:.3g} lr "
+          f"(tol {TRAIN_FP32_UTOL} lr + 2 ulps); {flipped} of {seen:,} parameters apart by "
+          f"more (all within 2 lr = {2 * lr1:.3g})", flush=True)
+
+    # descent on 2 alternating batches, the config's bf16 compute
+    n_desc, lr = TRAIN_DESCENT
+    opt = make_optimizer("adamw", cosine_schedule(*lr))
+    state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(2))
+    step = make_train_step(model, opt)
+    desc = []
+    for s in range(n_desc):
+        state, metrics = step(state, small(s % 2))
+        desc.append(float(metrics["loss"]))
+    check(all(map(math.isfinite, desc)) and desc[-1] < desc[0] - 0.1,
+          f"the loss did not fall by 0.1: {desc[0]} -> {desc[-1]}")
+    print(f"[{tag}] ok: {n_desc} steps on 2 alternating batches, cosine_schedule{lr}: loss "
+          f"{desc[0]:.4f} -> {desc[-1]:.4f}", flush=True)
+    del state
+
+    # a supervised run with a failure injected, against an uninterrupted one
+    def fresh():
+        return init_train_state(model, adamw, torch.Generator(device=dev).manual_seed(3))
+
+    step = make_train_step(model, adamw)
+    state = fresh()
+    for s in range(TRAIN_SUP_STEPS):
+        state, _ = step(state, small(s))
+    want = {n: p.detach().clone() for n, p in state["params"].named_parameters()}
+    want_opt = {k: v.clone() for k, v in state_tree(state["opt"])["m"].items()}
+    del state
+    boom = {"armed": True}
+
+    def failure_hook(s):
+        if s == TRAIN_FAIL_AT and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("simulated node failure")
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ck_dir = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=root))
+    try:
+        sup = TrainSupervisor(str(ck_dir), ckpt_every=TRAIN_CKPT_EVERY)
+        io_s = {"save": [], "restore": []}
+        for name in io_s:
+            fn = getattr(sup.ckpt, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                io_s[_name].append(time.perf_counter() - t0)
+                return out
+
+            setattr(sup.ckpt, name, timed)
+        state = sup.run(fresh(), step, small, TRAIN_SUP_STEPS, failure_hook=failure_hook)
+        ck_gb = sum(f.stat().st_size for f in ck_dir.rglob("*.npy")) / 1e9 / len(
+            sup.ckpt.all_steps())
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    check(sup.restarts == 1 and int(state["step"]) == TRAIN_SUP_STEPS
+          and all(torch.equal(p, want[n]) for n, p in state["params"].named_parameters())
+          and all(torch.equal(v, want_opt[k]) for k, v in state["opt"]["m"].items()),
+          "the supervised restart is not bit-equal to the uninterrupted run")
+    print(f"[{tag}] ok: TrainSupervisor, failure at step {TRAIN_FAIL_AT}, checkpoints every "
+          f"{TRAIN_CKPT_EVERY}, {TRAIN_SUP_STEPS} steps: params and AdamW state torch.equal to "
+          f"the uninterrupted run, 1 restart; a checkpoint {ck_gb:.2f} GB, save s "
+          f"{json.dumps([round(x, 2) for x in io_s['save']])}, restore s "
+          f"{json.dumps([round(x, 2) for x in io_s['restore']])}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({phase_s():.1f} s)", flush=True)
+    del state, params, want, want_opt
+    free_card(torch)
+
+    # ------------------------------------ (c) the launcher, --smoke, on the card
+    ck_dir = Path(tempfile.mkdtemp(prefix="train_launch_", dir=root))
+    try:
+        launch = train_main(["--arch", arch, "--smoke", "--steps", str(TRAIN_LAUNCH_STEPS),
+                             "--ckpt", str(ck_dir)])
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    check(len(launch) == TRAIN_LAUNCH_STEPS and all(map(math.isfinite, launch)),
+          f"launch.train: {launch}")
+    print(f"[{tag}] ok: launch.train --arch {arch} --smoke --steps {TRAIN_LAUNCH_STEPS} on the "
+          f"card: loss {launch[0]:.4f} -> {launch[-1]:.4f} ({phase_s():.1f} s)", flush=True)
+    free_card(torch)
+
+
 def batch_serve(torch, kernels, model, params, batch, store, r0):
     """The requests of ``batch`` (tokens (R, T) and their modality stub)
     decoded together on the batch path (the engine serves uniform caches
@@ -3914,6 +4236,9 @@ def search_phases(torch, np):
 def main() -> int:
     import gc
 
+    # a fixed cuBLAS workspace before torch starts cuBLAS, for the training
+    # phase's reproducible products (see repro_torch.train.train_step)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -3947,7 +4272,9 @@ def main() -> int:
     for tag in XA_RUNS:
         xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"],
                     tag)
-    print(f"[vlm] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
+    # ------------------------------------ 23. training MiniCPM-2B (AdamW)
+    train_phase(torch, np, dev, card, st["phase_s"])
+    print(f"[train] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

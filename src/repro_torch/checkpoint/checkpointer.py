@@ -42,8 +42,12 @@ then writes in a daemon thread; ``wait()`` joins before the next save
 and re-raises the writer's exception (``wait(reraise=False)`` drains
 without raising, for recovery paths).
 
-Restore returns host (numpy) arrays; the caller places them on its
-device.  A sharded collection splits them over its shards itself
+A bfloat16 tensor, which has no numpy form, is stored bit for bit: its
+16-bit patterns as a uint16 ``.npy``, named ``"bfloat16"`` in the
+manifest as the reference names its bfloat16 leaves.  Restore returns
+host (numpy) arrays, and a bfloat16 leaf as a CPU ``torch.bfloat16``
+tensor; the caller places them on its device.  A sharded collection
+splits them over its shards itself
 (``store.router.ShardedCollection.restore``), so there is no
 ``shardings=``.
 
@@ -95,14 +99,30 @@ class CorruptSnapshot(RuntimeError):
         self.reason = reason
 
 
+class _Bf16Bits(np.ndarray):
+    """The 16-bit patterns of a bfloat16 tensor (numpy has no bfloat16):
+    saved as uint16 and named ``"bfloat16"`` in the manifest."""
+
+
 def _to_host(x, copy: bool = False) -> np.ndarray:
-    """A leaf as a numpy array (a tensor is moved to the host first)."""
+    """A leaf as a numpy array (a tensor is moved to the host first; a
+    bfloat16 tensor as its bit patterns)."""
     if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
-            raise TypeError("a bfloat16 tensor has no numpy form: persist the "
-                            "float32 truth and re-derive it on restore")
-        x = x.detach().cpu().numpy()
+            bits = x.view(torch.int16).numpy().view(np.uint16)
+            return (np.array(bits) if copy else bits).view(_Bf16Bits)
+        x = x.numpy()
     return np.array(x) if copy else np.asarray(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if isinstance(a, _Bf16Bits) else str(a.dtype)
+
+
+def _from_bf16_bits(a: np.ndarray) -> torch.Tensor:
+    """A bfloat16 leaf read back: any 2-byte array's bits as a CPU tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
 
 
 def _host_tree(tree, copy: bool = False):
@@ -141,7 +161,7 @@ def _unflatten(paths, leaves):
 
 def _leaf_blob(a: np.ndarray) -> bytes:
     buf = io.BytesIO()
-    np.save(buf, a)
+    np.save(buf, a.view(np.ndarray))
     return buf.getvalue()
 
 
@@ -238,7 +258,7 @@ class Checkpointer:
                     {
                         "file": f"arr_{i}.npy",
                         "shape": list(a.shape),
-                        "dtype": str(a.dtype),
+                        "dtype": _dtype_name(a),
                         "crc32": zlib.crc32(blob),
                     }
                     for i, (a, blob) in enumerate(zip(leaves, blobs))
@@ -413,9 +433,10 @@ class Checkpointer:
         if "crc32" in spec and zlib.crc32(blob) != spec["crc32"]:
             raise CorruptSnapshot(step, spec["file"], "crc32 mismatch")
         try:
-            return np.load(io.BytesIO(blob), allow_pickle=False)
+            a = np.load(io.BytesIO(blob), allow_pickle=False)
         except ValueError as e:
             raise CorruptSnapshot(step, spec["file"], f"undecodable: {e}") from e
+        return _from_bf16_bits(a) if spec.get("dtype") == "bfloat16" else a
 
     @staticmethod
     def _leaf_paths(step: int, manifest: dict, keys) -> list:

@@ -23,6 +23,7 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "cross_entropy",
+    "grad_cast",
     "promoted",
     "matmul",
     "einsum",
@@ -119,6 +120,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> 
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+class _Bf16Grad(torch.autograd.Function):
+    """The identity, whose backward pass rounds the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd hands the input a gradient of its own dtype: a float32
+        # input gets the bf16-rounded values back in float32
+        return g.to(torch.bfloat16)
+
+
+def grad_cast(x: torch.Tensor, dtype_name: str) -> torch.Tensor:
+    """Identity in the forward pass; downcasts the cotangent to bf16 in
+    the backward pass when ``dtype_name`` is "bfloat16" (the cross-layer
+    gradients of the reference's scanned layers stay bf16)."""
+    if dtype_name != "bfloat16":
+        return x
+    return _Bf16Grad.apply(x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:

@@ -13,9 +13,10 @@ The parameters are an :class:`EncDec` module whose names follow the
 reference's key paths (``embed``, ``enc_blocks.<i>.attn.wq``,
 ``enc_norm``, ``dec_blocks.<i>.xattn.wk``, ``final_norm``).  Each layer
 casts its >=2-D float32 weights to the compute dtype as it runs, as the
-reference's scanned layers do.  Caches are stacked: ``k``/``v`` (L, B, S,
-KV, hd) and the cross ``xk``/``xv`` (L, B, enc_seq, KV, hd), which decode
-passes on unchanged.
+reference's scanned layers do; each layer is rematerialised when
+autograd records the pass, as the reference's are.  Caches are stacked:
+``k``/``v`` (L, B, S, KV, hd) and the cross ``xk``/``xv`` (L, B, enc_seq,
+KV, hd), which decode passes on unchanged.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from torch import nn
 from . import attention as attn
 from . import ffn as ffn_mod
 from .common import DTYPES, compute_dtype, cross_entropy, embed_init, matmul, rmsnorm
-from .transformer import Block, _layer_params, _stack, _tokens, _zeros
+from .transformer import Block, _layer_params, _stack, _tokens, _zeros, rematerialised
 
 __all__ = ["EncDec", "sinusoid", "sinusoid_at", "init_params", "encode", "dec_forward",
            "loss_fn", "cache_spec", "decode", "prefill"]
@@ -112,13 +113,17 @@ def encode(params: EncDec, frames, cfg, mesh=None):
     B, S, D = frames.shape
     x = frames.to(dt) + sinusoid(S, D, device=frames.device).to(dt)[None]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for block in params.enc_blocks:
+
+    def layer(x, block):
         bp = _layer_params(block, dt)
         h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
         a, _ = attn.attention(h, bp["attn"], positions, causal=False, use_rope=False)
         x = x + a
         h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
-        x = x + ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind)
+        return x + ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind)
+
+    for block in params.enc_blocks:
+        x = rematerialised(layer, x, block)
     return rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -132,8 +137,8 @@ def dec_forward(params: EncDec, tokens, enc_out, cfg, mesh=None, want_cache=Fals
     x = params.embed[tokens].to(dt)
     x = x + sinusoid(T, cfg.d_model, device=x.device).to(dt)[None]
     positions = torch.arange(T, device=x.device).expand(B, T)
-    caches = []
-    for block in params.dec_blocks:
+
+    def layer(x, block):
         bp = _layer_params(block, dt)
         h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
         a, (k, v) = attn.attention(h, bp["attn"], positions, causal=True, use_rope=False)
@@ -142,7 +147,11 @@ def dec_forward(params: EncDec, tokens, enc_out, cfg, mesh=None, want_cache=Fals
         c, (xk, xv) = attn.cross_attention(hx, bp["xattn"], enc_out)
         x = x + c
         h2 = rmsnorm(x, bp["norm2"], cfg.norm_eps)
-        x = x + ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind)
+        return x + ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind), (k, v, xk, xv)
+
+    caches = []
+    for block in params.dec_blocks:
+        x, (k, v, xk, xv) = rematerialised(layer, x, block)
         if want_cache:
             caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)

@@ -7,7 +7,11 @@ caches, pos)``.  ``model.init(generator)`` draws the parameters (a
 device unless ``device`` says otherwise; ``input_specs``/``cache_specs``
 give ``device="meta"`` tensors, the counterpart of JAX's
 ``ShapeDtypeStruct``.  ``params_from_reference`` carries the reference's
-parameter tree (as numpy arrays) into the port.
+parameter tree (as numpy arrays) into the port, and
+``train_state_from_reference`` / ``train_state_to_reference`` a train
+state (parameters, optimizer state, step) both ways.  The reference
+stacks each per-layer weight on a leading axis; ``stacked_leaves`` names
+the port's per-layer parameters by the stacked leaf they make up.
 
 Every family is ported: dense, moe, ssm and hybrid
 (:mod:`~repro_torch.models.transformer`), encdec
@@ -28,7 +32,8 @@ from ..device import resolve_device
 from . import encdec, transformer, vlm
 from .common import DTYPES, compute_dtype
 
-__all__ = ["Model", "build_model", "param_count", "params_from_reference"]
+__all__ = ["Model", "build_model", "param_count", "params_from_reference", "Leaf",
+           "stacked_leaves", "train_state_from_reference", "train_state_to_reference"]
 
 # families whose layers are not ported yet, and what waits on each: none
 _WAITING: dict[str, str] = {}
@@ -166,3 +171,110 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> torch.nn
     head = t("lm_head") if "lm_head" in tree else None
     return transformer.Transformer(t("embed"), _blocks(tree["blocks"], cfg.n_layers, device),
                                    t("final_norm"), head)
+
+
+# ---------------------------------------------------------------------------
+# the reference's stacked leaves, and train states both ways
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One leaf of the reference's parameter tree: its dotted key path
+    (``"blocks.attn.wq"``, ``"embed"``), the port's parameters that make
+    it up with their names (one a layer, in order, where ``stacked``: the
+    reference stacks them on a leading axis), and its shape there."""
+
+    path: str
+    names: tuple
+    params: tuple
+    stacked: bool
+
+    @property
+    def shape(self) -> tuple:
+        one = tuple(self.params[0].shape)
+        return (len(self.params),) + one if self.stacked else one
+
+
+def stacked_leaves(params: torch.nn.Module) -> list:
+    """The reference's leaves of ``params``, in the order in which JAX
+    flattens its tree (sorted key paths).  A parameter of a module list
+    (``blocks.<i>.attn.wq``) belongs to the stacked leaf of its path
+    without the index (``blocks.attn.wq``)."""
+    groups: dict = {}
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        stacked = len(parts) > 2 and parts[1].isdigit()
+        path = ".".join(parts[:1] + parts[2:]) if stacked else name
+        names, ps, _ = groups.setdefault(path, ([], [], stacked))
+        names.append(name)
+        ps.append(p)
+    return [Leaf(path, tuple(n), tuple(ps), st)
+            for path, (n, ps, st) in sorted(groups.items(), key=lambda kv: kv[0].split("."))]
+
+
+def _at(tree: dict, path: str):
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _nest(flat: dict) -> dict:
+    """{dotted path: value} as nested dicts."""
+    out: dict = {}
+    for path, value in flat.items():
+        *head, last = path.split(".")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bf16 as float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_from_reference(state_tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A reference train state (``{"params", "opt", "step"}`` as numpy
+    trees: AdamW's ``m``/``v``, or Adafactor's ``v`` with ``vr``/``vc`` or
+    ``v`` at each leaf) as the port's, on ``device`` (the CUDA device when
+    None): the parameters a module with gradients on, the optimizer state
+    one stacked tensor a leaf keyed by its dotted path, and the steps int32
+    CPU scalars (see ``train.optimizer``)."""
+    device = resolve_device(device)
+    params = params_from_reference(state_tree["params"], cfg, device)
+    params.requires_grad_(True)
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: _tensor(v, device) for k, v in node.items()}
+        return _tensor(node, device)
+
+    paths = [leaf.path for leaf in stacked_leaves(params)]
+    opt = {name: (torch.tensor(int(np.asarray(tree)), dtype=torch.int32) if name == "step"
+                  else {path: carry(_at(tree, path)) for path in paths})
+           for name, tree in state_tree["opt"].items()}
+    return {"params": params, "opt": opt,
+            "step": torch.tensor(int(np.asarray(state_tree["step"])), dtype=torch.int32)}
+
+
+def train_state_to_reference(state: dict) -> dict:
+    """The inverse of ``train_state_from_reference``: the reference's tree
+    of numpy arrays, the per-layer parameters stacked (bf16 leaves as
+    float32, exactly)."""
+    leaves = stacked_leaves(state["params"])
+    params = _nest({leaf.path: (np.stack([_host(p) for p in leaf.params]) if leaf.stacked
+                                else _host(leaf.params[0])) for leaf in leaves})
+
+    def host(node):
+        if isinstance(node, dict):
+            return {k: _host(v) for k, v in node.items()}
+        return _host(node)
+
+    opt = {name: (np.int32(int(tree)) if name == "step"
+                  else _nest({path: host(node) for path, node in tree.items()}))
+           for name, tree in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": np.int32(int(state["step"]))}

@@ -25,6 +25,12 @@ in the promotion of its operands' dtypes (bf16 activations times float32
 weights give float32, and the residual stream is float32 from the first
 layer on).
 
+The parameters are made without gradients, for serving; the train state
+(``train.init_train_state``) switches them on.  When autograd records a
+forward pass, each layer is rematerialised (``rematerialised``) and, in
+the uniform families, its input passes through ``grad_cast``, as in the
+reference's scanned branch.
+
 Caches are stacked (L, ...) tensors (``k``/``v`` (L, B, S, KV, hd),
 ``ssm`` (L, B, H, N, P), ``conv`` (L, B, CONV_W - 1, conv_dim)) when every
 layer has the same window (the serving engine splices them on axis 1),
@@ -36,11 +42,13 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import ssm as ssm_mod
-from .common import DTYPES, compute_dtype, cross_entropy, dense_init, embed_init, rmsnorm
+from .common import (DTYPES, compute_dtype, cross_entropy, dense_init, embed_init, grad_cast,
+                     rmsnorm)
 
 __all__ = [
     "Transformer",
@@ -49,6 +57,7 @@ __all__ = [
     "init_params",
     "block_forward",
     "forward",
+    "rematerialised",
     "logits_fn",
     "loss_fn",
     "cache_spec",
@@ -240,25 +249,41 @@ def _stack(caches: list) -> dict:
     return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
 
 
+def rematerialised(fn, *args, remat: bool = True):
+    """``fn(*args)``; when autograd records it, only the inputs are kept
+    and the activations are recomputed in the backward pass (the
+    reference's ``jax.checkpoint(..., nothing_saveable)``).  Recomputing
+    runs the same operations on the same inputs, so the gradients are the
+    same bits as without it."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: Transformer, tokens, cfg, mesh=None, *, want_cache=False, remat=True):
-    """Token ids (B, T) -> (hidden (B,T,D), caches, aux).  ``mesh`` and
-    ``remat`` (sharding and rematerialisation in the reference) have no
-    effect on one device; a mesh with a 'model' axis larger than 1 is
-    refused by the MoE FFN."""
+    """Token ids (B, T) -> (hidden (B,T,D), caches, aux).  With ``remat``
+    each layer is rematerialised when autograd records the pass.  ``mesh``
+    (sharding in the reference) has no effect on one device; a mesh with a
+    'model' axis larger than 1 is refused by the MoE FFN."""
     dt = compute_dtype(cfg)
     tokens = _tokens(tokens, params)
     B, T = tokens.shape
     x = params.embed[tokens].to(dt)
     positions = torch.arange(T, device=x.device).expand(B, T)
     uniform = _uniform_family(cfg)
+
+    def layer(x, block, window):
+        if uniform:  # the reference's scanned branch
+            x = grad_cast(x, cfg.dtype)
+        # the per-layer loop keeps the weights as stored (see the module doc)
+        return block_forward(x, _layer_params(block, dt if uniform else None), cfg, mesh,
+                             positions=positions, window=window, want_cache=want_cache)
+
     caches = []
     lb = torch.zeros((), device=x.device)
     for li, block in enumerate(params.blocks):
         window = cfg.sliding_window if uniform else _layer_window(cfg, li)
-        # the per-layer loop keeps the weights as stored (see the module doc)
-        x, cache, aux = block_forward(x, _layer_params(block, dt if uniform else None), cfg, mesh,
-                                      positions=positions, window=window,
-                                      want_cache=want_cache)
+        x, cache, aux = rematerialised(layer, x, block, window, remat=remat)
         caches.append(cache)
         if "load_balance" in aux:
             lb = lb + aux["load_balance"]

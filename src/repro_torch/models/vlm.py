@@ -18,7 +18,8 @@ The parameters are a :class:`VLM` module with the reference's key paths
 (``embed``, ``blocks.<i>.attn.wq``, ``cross_blocks.<g>.xattn.wq``,
 ``cross_blocks.<g>.gate_attn``, ``img_proj``, ``final_norm``,
 ``lm_head``); each layer casts its >=2-D float32 weights to the compute
-dtype as it runs.  Caches: ``{"self": {"k", "v": (G, cross_every, B, S,
+dtype as it runs, and each group (its self layers and cross block) is
+rematerialised when autograd records the pass, as the reference's is.  Caches: ``{"self": {"k", "v": (G, cross_every, B, S,
 KV, hd)}, "cross": {"xk", "xv": (G, B, n_img, KV, hd)}}``; decode passes
 the cross caches on unchanged.
 """
@@ -32,7 +33,8 @@ from torch import nn
 from . import attention as attn
 from . import ffn as ffn_mod
 from .common import DTYPES, compute_dtype, cross_entropy, dense_init, embed_init, matmul, rmsnorm
-from .transformer import Block, _layer_params, _stack, _tokens, _zeros, init_block, logits_fn
+from .transformer import (Block, _layer_params, _stack, _tokens, _zeros, init_block, logits_fn,
+                          rematerialised)
 
 __all__ = ["VLM", "n_groups", "init_params", "forward", "loss_fn", "cache_spec", "prefill",
            "decode"]
@@ -121,20 +123,28 @@ def forward(params: VLM, tokens, images, cfg, mesh=None, want_cache=False):
     positions = torch.arange(T, device=x.device).expand(B, T)
     images = torch.as_tensor(images, device=x.device)
     img_e = matmul(images.to(dt), params.img_proj.to(dt))
-    self_caches, cross_caches = [], []
-    for _, selfs, cp in _group_layers(params, cfg, dt):
-        for bp in selfs:
+    E = cfg.cross_every
+
+    def group(x, selfs, cross):
+        kvs = []
+        for block in selfs:
+            bp = _layer_params(block, dt)
             h = rmsnorm(x, bp["norm1"], cfg.norm_eps)
-            a, (k, v) = attn.attention(h, bp["attn"], positions, causal=True,
-                                       rope_theta=cfg.rope_theta)
+            a, kv = attn.attention(h, bp["attn"], positions, causal=True,
+                                   rope_theta=cfg.rope_theta)
             x = x + a
             x = x + _ffn(x, bp, cfg)
-            if want_cache:
-                self_caches.append({"k": k, "v": v})
-        c, (xk, xv) = attn.cross_attention(rmsnorm(x, cp["norm1"], cfg.norm_eps), cp["xattn"],
-                                           img_e)
-        x = _gated(x, cp, cfg, c)
+            kvs.append(kv)
+        cp = _layer_params(cross, dt)
+        c, xkv = attn.cross_attention(rmsnorm(x, cp["norm1"], cfg.norm_eps), cp["xattn"],
+                                      img_e)
+        return _gated(x, cp, cfg, c), kvs, xkv
+
+    self_caches, cross_caches = [], []
+    for g, cross in enumerate(params.cross_blocks):
+        x, kvs, (xk, xv) = rematerialised(group, x, params.blocks[g * E:(g + 1) * E], cross)
         if want_cache:
+            self_caches += [{"k": k, "v": v} for k, v in kvs]
             cross_caches.append({"xk": xk, "xv": xv})
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     if not want_cache:

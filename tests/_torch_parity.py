@@ -129,6 +129,10 @@ __all__ = [
     "ref_ssm_forward",
     "ref_ssm_decode",
     "ref_moe_ffn",
+    "ref_value_and_grad",
+    "ref_grad_cast_vjp",
+    "RefTrain",
+    "ref_schedules",
 ]
 
 INDEX_FIELDS = (
@@ -950,3 +954,60 @@ def ref_moe_ffn(x, params, cfg):
 
     out, aux = ffn.moe_ffn(jnp.asarray(x), _jnp_tree(params), cfg)
     return np.asarray(out), float(aux["load_balance"])
+
+
+# ---------------------------------------------------------------------------
+# Training (``repro.train``): value and grad, jitted train steps
+# ---------------------------------------------------------------------------
+
+
+def ref_value_and_grad(lm: "RefLM", batch: dict):
+    """``jax.value_and_grad`` of ``lm``'s loss on the numpy ``batch``:
+    (loss, gradient tree as numpy)."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: lm.model.loss(p, jb)[0]))(lm.params)
+    return float(loss), _np_tree(grads)
+
+
+def ref_grad_cast_vjp(x, ct, dtype_name: str, dtype: str):
+    """The cotangent ``grad_cast`` hands back for ``ct``, x and ct in ``dtype``."""
+    from repro.models.common import grad_cast
+
+    x = jnp.asarray(x).astype(dtype)
+    _, vjp = jax.vjp(lambda a: grad_cast(a, dtype_name), x)
+    (g,) = vjp(jnp.asarray(ct).astype(dtype))
+    return np.asarray(g.astype(jnp.float32)), jnp.dtype(g.dtype).name
+
+
+def ref_schedules():
+    """The reference's ``cosine_schedule`` and ``wsd_schedule``."""
+    from repro.train.optimizer import cosine_schedule, wsd_schedule
+
+    return cosine_schedule, wsd_schedule
+
+
+class RefTrain:
+    """The reference's jitted ``make_train_step`` on ``RefLM(arch, seed,
+    **scaled)``'s model and parameters, with ``make_optimizer(optimizer,
+    cosine_schedule(*lr))``; states and batches as numpy trees."""
+
+    def __init__(self, arch: str, optimizer: str, lr=(1e-2, 2, 100), accum_steps: int = 1,
+                 seed: int = 0, **scaled):
+        from repro.train import make_optimizer, make_train_step
+        from repro.train.optimizer import cosine_schedule
+
+        self.lm = RefLM(arch, seed, **scaled)
+        opt = make_optimizer(optimizer, cosine_schedule(*lr))
+        self.state = {"params": self.lm.params, "opt": opt.init(self.lm.params),
+                      "step": jnp.zeros((), jnp.int32)}
+        self._step = jax.jit(make_train_step(self.lm.model, opt, accum_steps=accum_steps))
+
+    @property
+    def tree(self) -> dict:
+        return _np_tree(self.state)
+
+    def step(self, batch: dict) -> dict:
+        """One step; its metrics as floats."""
+        self.state, metrics = self._step(self.state, {k: jnp.asarray(v)
+                                                      for k, v in batch.items()})
+        return {k: float(v) for k, v in metrics.items()}

@@ -34,12 +34,13 @@ PORTED = (
     "store", "store.cache", "store.collection", "store.lifecycle", "store.router",
     "store.service",
     "configs", "data.pipeline", "models.ffn", "serve", "serve.engine", "serve.retrieval",
+    "train", "train.train_step", "runtime", "runtime.fault_tolerance",
 )
 # modules without ``__all__`` in the reference, whose imports are helpers:
 # the functions and classes they define
 DEFINED = (
     "models.attention", "models.transformer", "models.ssm", "models.registry",
-    "models.encdec", "models.vlm",
+    "models.encdec", "models.vlm", "train.optimizer",
 )
 
 

@@ -34,6 +34,9 @@ from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn  # noqa: E4
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve import ServeEngine, build_datastore  # noqa: E402
 from repro_torch.kernels import launches, mode_launches, pairwise_l2, reset_launches  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.models.registry import train_state_from_reference  # noqa: E402
+from repro_torch.train import init_train_state, make_optimizer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -140,6 +143,22 @@ for arch, extra in (("whisper-medium", "frames"), ("llama-3.2-vision-11b", "imag
     logp, _, _ = RetrievalLM(model, ds, r0=0.5, steps=4).decode(
         lm, torch.as_tensor(b["tokens"][:, 8]), caches, 8)
     assert logp.shape == (2, cfg.padded_vocab) and torch.isfinite(logp).all()
+import repro_torch.train, repro_torch.runtime
+from repro_torch.launch.train import main as train_main
+from repro_torch.runtime import TrainSupervisor
+from repro_torch.train import init_train_state, make_optimizer, make_train_step
+cfg = get_config("minicpm-2b").smoke().scaled(n_layers=1)
+model = build_model(cfg)
+opt = make_optimizer("adafactor")
+state = init_train_state(model, opt, gen, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    state = TrainSupervisor(tmp, ckpt_every=1).run(
+        state, make_train_step(model, opt, accum_steps=2),
+        make_batch_fn(SyntheticTokens(cfg.vocab_size, 8, 2)), 2)
+    assert int(state["step"]) == 2
+    losses = train_main(["--arch", "minicpm-2b", "--device", "cpu", "--steps", "2",
+                         "--batch", "2", "--seq", "8", "--ckpt", tmp + "/launch"])
+    assert len(losses) == 2
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)
@@ -210,6 +229,9 @@ def test_entry_points_need_a_device_without_cuda(tmp_path):
         lambda: model.init_cache(1, 8),
         lambda: build_datastore(model, lm, batches, gen),
         lambda: ServeEngine(model, lm),
+        lambda: init_train_state(model, make_optimizer("adamw"), gen),
+        lambda: train_state_from_reference({"params": {}, "opt": {}, "step": 0}, model.cfg),
+        lambda: train_main(["--arch", "minicpm-2b", "--steps", "1"]),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

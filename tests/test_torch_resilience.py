@@ -190,8 +190,12 @@ class TestCheckpointerIntegrity:
         np.testing.assert_array_equal(got["z"], np.arange(6, dtype=np.int32).reshape(2, 3))
         np.testing.assert_array_equal(got["m"]["y"], np.ones(3, np.float32))
         np.testing.assert_array_equal(got["m"]["b"], np.zeros(2, np.float32))
-        with pytest.raises(TypeError, match="bfloat16"):
-            ck.save(1, {"q": torch.zeros(2, dtype=torch.bfloat16)})
+        # a bfloat16 tensor is stored bit for bit and restored as bfloat16
+        q = torch.tensor([1.0, -2.5, 3.1415926, 1e-30, float("inf")]).to(torch.bfloat16)
+        ck.save(1, {"q": q})
+        assert ck._load_manifest(1)["leaves"][0]["dtype"] == "bfloat16"
+        got, _ = ck.restore()
+        assert got["q"].dtype == torch.bfloat16 and torch.equal(got["q"], q)
 
     def test_corrupt_leaf_raises_typed_and_falls_back(self, tmp_path):
         ck = Checkpointer(str(tmp_path))
@@ -761,6 +765,13 @@ class TestBrownout:
 
 
 class TestStragglers:
+    def test_runtime_reexport_identity(self):
+        from repro_torch.runtime.fault_tolerance import (
+            StragglerMonitor as RuntimeMonitor,
+        )
+
+        assert RuntimeMonitor is StragglerMonitor
+
     def test_monitor_flags_outlier_without_folding_it(self):
         mon = StragglerMonitor(alpha=0.5, threshold=2.0, warmup=3)
         assert not any(mon.record(i, 1.0) for i in range(4))

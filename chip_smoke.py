@@ -303,9 +303,33 @@ Phases, each printing a line (with its seconds) when it passes:
                  failure at step 7 (checkpoints every 5 under build/, 12 steps)
                  torch.equal to an uninterrupted run, with its save and
                  restore seconds; (c) ``launch.train.main`` with ``--smoke`` for
-                 20 steps.
+                 20 steps;
+24. mesh       — every mesh a single-controller mesh over the card (``make_mesh``
+                 cycles the CUDA devices over its grid).  (a), right after
+                 phase 19 on its parameters: Arctic expert-parallel on (data
+                 2, model 4), layer 0's ``moe_ffn`` of a prefill of 4 x 1024
+                 tokens and of a decode step at 4 slots against ``moe_oracle``
+                 per data shard at the per-shard capacity (the same experts
+                 and kept assignments, out within 0.03 x max |oracle|), the EP
+                 loss within 5e-2 of the one-device loss, ms of each; (b)
+                 Yi-9B at its width, 8 of 48 layers, ``sharding.pp.pp_loss_fn``
+                 over the 'pod' axis of (pod 2, data 2, model 2), 8 x 1024
+                 tokens in 4 microbatches: the loss within 2e-3 of
+                 ``model.loss``, the embedding's gradient within rtol 5e-2,
+                 atol 1e-4, ms and the bubble share; (c) MiniCPM-2B at its
+                 width, 20 of 40 layers, 4 AdamW steps through the int8
+                 error-feedback exchange across the pods of (pod 2, data 1,
+                 model 1): step 1's loss within 1e-5 of the uncompressed
+                 step's, its parameters within 2e-2 relative L2 of that step's,
+                 its mean gradient within 2e-2 and its update within 0.3 of
+                 that step's (relative L2), both pods' residual trees non-zero and apart and through a
+                 checkpoint ``torch.equal``, step and exchange ms, the wire
+                 ratio, peak memory; (d) ``launch.dryrun``'s cells for Yi-9B
+                 (train_4k, prefill_32k, decode_32k) and Arctic (train_4k) on
+                 16 x 16, on the meta device: per-device GB and FLOPs, CUDA
+                 memory unchanged.  Alone: ``tools/mesh_phase.py``.
 
-Each of phases 17-23 frees its model before the next starts and prints
+Each of phases 17-24 frees its model before the next starts and prints
 its peak memory.  Any failure raises, and the run exits non-zero.  The last three lines are
 the card's name and power limit as nvidia-smi reports them, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -466,6 +490,34 @@ TRAIN_ACCUM_TOL = 2e-2
 TRAIN_FP32_TOL, TRAIN_FP32_G, TRAIN_FP32_UTOL = 1e-4, 1e-6, 1e-4
 TRAIN_FAIL_AT, TRAIN_CKPT_EVERY, TRAIN_SUP_STEPS = 7, 5, 12
 TRAIN_LAUNCH_STEPS = 20  # (c): launch.train --smoke
+# phase 24: the mesh, every mesh a single-controller one over the card.  (a)
+# Arctic (phase 19's parameters) expert-parallel on (data 2, model 4): a
+# prefill of 4 x 1024 tokens, decode at LM_SLOTS slots, the EP loss within
+# the reference's rtol (tests/test_distributed.py) of the one-device loss
+MESH_EP = ((2, 4), ("data", "model"))
+MESH_EP_BATCH, MESH_EP_SEQ, MESH_EP_RTOL = 4, 1024, 5e-2
+# (b) GPipe: Yi-9B at its published width, 8 of its 48 layers (2.27 B fp32
+# parameters, ~18 GB with their gradients: the cut keeps the run short), 8 x
+# 1024 tokens in 4 microbatches over the 'pod' axis of (pod 2, data 2, model 2);
+# the reference's tolerances (tests/test_distributed.py's PP parity)
+MESH_PP = ((2, 2, 2), ("pod", "data", "model"))
+PP_RUN = ("yi-9b", {k: v for k, v in LM_RUNS["knnlm"][1].items() if k != "n_layers"})
+PP_LAYERS, PP_BATCH, PP_SEQ, PP_MICRO = 8, 8, 1024, 4
+PP_LOSS_RTOL, PP_GRAD = 2e-3, dict(rtol=5e-2, atol=1e-4)
+# (c) MiniCPM-2B at its width, 20 of its 40 layers (1.50 B fp32 parameters:
+# params, m, v, the gradients and two pods' residual trees ~42 GB; full depth
+# would add 2 x 10.9 GB of residuals to phase 23's 55.6 GB peak), AdamW, 4
+# steps of a 4096-token sequence a pod on (pod 2, data 1, model 1); the
+# parameters after step 1 through int8 with error feedback within PODS_TOL
+# (relative L2, over the parameters' norm) of the uncompressed step's
+MESH_PODS = ((2, 1, 1), ("pod", "data", "model"))
+PODS_LAYERS, PODS_STEPS, PODS_SEQ, PODS_TOL = 20, 4, 4096, 2e-2
+# step 1's mean gradient and update through the int8 exchange against the
+# uncompressed step's, in relative L2 (an update that is not made reads 1)
+PODS_GRAD_TOL, PODS_UPDATE_TOL = 2e-2, 0.3
+# (d) the dry run's cells on the 16 x 16 production mesh (device meta)
+DRYRUN_CELLS = (("yi-9b", ("train_4k", "prefill_32k", "decode_32k")),
+                ("arctic-480b", ("train_4k",)))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2066,11 +2118,12 @@ def moe_oracle(torch, x, p, cfg):
     return out, kept, ids, lb, cap
 
 
-def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s) -> None:
+def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s):
     """Phase 19: Arctic-480B at its published width, depth cut to
     ARCTIC_LAYERS layers (bf16 weights): the MoE FFN against
     ``moe_oracle`` on the path's own inputs, prefill vs decode, and
-    requests served without retrieval and through B2 and B1."""
+    requests served without retrieval and through B2 and B1.  Returns
+    (cfg, model, params) for phase 24 (a)."""
     from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models.registry import build_model
@@ -2159,8 +2212,9 @@ def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_
                         held[:LM_SLOTS].contiguous(), r0, path_launches)
     print(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
           f"({phase_s():.1f} s)", flush=True)
-    del stores, ds, params
+    del stores, ds
     free_card(torch)
+    return cfg, model, params  # phase 24 (a) runs on them before they are freed
 
 
 def hybrid_phase(torch, np, dev, card, phase_s) -> None:
@@ -2505,6 +2559,365 @@ def train_phase(torch, np, dev, card, phase_s) -> None:
     print(f"[{tag}] ok: launch.train --arch {arch} --smoke --steps {TRAIN_LAUNCH_STEPS} on the "
           f"card: loss {launch[0]:.4f} -> {launch[-1]:.4f} ({phase_s():.1f} s)", flush=True)
     free_card(torch)
+
+
+def mesh_ep(torch, np, dev, card, arctic, phase_s) -> None:
+    """Phase 24 (a), run on phase 19's parameters before they are freed:
+    Arctic-480B (full width, ARCTIC's depth) expert-parallel on a
+    single-controller (data 2, model 4) mesh over the card.  Layer 0's
+    ``moe_ffn`` of a prefill of MESH_EP_BATCH x MESH_EP_SEQ tokens and of a
+    decode step at LM_SLOTS slots against ``moe_oracle`` run data shard by
+    data shard at the per-shard capacity (the same experts and kept
+    assignments, out within MOE_TOL x max |oracle|), the EP loss against the
+    one-device loss (MESH_EP_RTOL), and the ms of each."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.models import ffn as ffn_mod
+
+    tag = "mesh"
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = arctic
+    mesh = make_mesh(*MESH_EP)
+    check(all(d.type == dev.type for d in mesh.devices), "the mesh is not on the card")
+    E, k, D = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    batch = make_batch_fn(SyntheticTokens(cfg.vocab_size, MESH_EP_SEQ, MESH_EP_BATCH,
+                                          seed=SEED + 2))(0)
+    toks = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    summary = {}
+    with torch.inference_mode():
+        cases = {"prefill": capture_moe(ffn_mod, lambda: model.prefill(
+            params, {"tokens": toks}, mesh))}
+        _, _, c = model.prefill(params, {"tokens": toks[:LM_SLOTS, :LM_CHECK_T]}, mesh,
+                                cache_len=LM_CACHE)
+        cases["decode"] = capture_moe(ffn_mod, lambda: model.decode(
+            params, toks[:LM_SLOTS, LM_CHECK_T], c, LM_CHECK_T, mesh))
+        del c
+        for name, (x, p, out, aux) in cases.items():
+            xf = x.reshape(-1, D)
+            m = xf.shape[0] // dp
+            _, ids = ffn_mod._top_k(torch.softmax(xf.float() @ p["router"].float(), -1), k)
+            cap = max(4, math.ceil(xf.shape[0] * k / dp / E * cfg.moe_capacity_factor))
+            errs, dropped, scale = [], [], 0.0
+            for d in range(dp):
+                rows = slice(d * m, (d + 1) * m)
+                want, kept, ids_o, _, cap_o = moe_oracle(torch, x.reshape(-1, D)[rows][None],
+                                                         p, cfg)
+                check(cap_o == cap and torch.equal(ids_o, ids[rows]),
+                      f"{name}, data shard {d}: the router's top-{k} or the capacity differs")
+                kept_port = torch.zeros_like(kept)
+                for r in range(tp):
+                    keep, _, flat = ffn_mod._dispatch(ids[rows], capacity=cap,
+                                                      n_local=E // tp, first_eid=r * (E // tp))
+                    kept_port[flat[keep]] = True
+                check(torch.equal(kept_port, kept),
+                      f"{name}, data shard {d}: kept assignments differ from the oracle's")
+                errs.append(float((out.reshape(-1, D)[rows].float() - want).abs().max()))
+                scale = max(scale, float(want.abs().max()))
+                dropped.append(int((~kept).sum()))
+            check(max(errs) <= MOE_TOL * scale, f"{name}: the EP moe_ffn off the oracle by "
+                  f"{max(errs)} (tol {MOE_TOL} x {scale})")
+            summary[name] = {"tokens": xf.shape[0], "capacity_per_shard": cap,
+                             "dropped_per_shard": dropped, "max_abs_err": round(max(errs), 5),
+                             "max_abs_out": round(scale, 4)}
+        del cases, x, p, out
+        one = float(model.loss(params, {"tokens": toks, "labels": labels})[0])
+        ep = float(model.loss(params, {"tokens": toks, "labels": labels}, mesh)[0])
+        check(abs(ep - one) <= MESH_EP_RTOL * abs(one),
+              f"the EP loss {ep} is not within {MESH_EP_RTOL} of the one-device loss {one}")
+        ms = {}
+        for name, fn in (
+                ("prefill_ep", lambda: model.prefill(params, {"tokens": toks}, mesh)),
+                ("prefill_1dev", lambda: model.prefill(params, {"tokens": toks})),
+                ("loss_ep", lambda: model.loss(params, {"tokens": toks, "labels": labels},
+                                               mesh)),
+                ("loss_1dev", lambda: model.loss(params, {"tokens": toks, "labels": labels}))):
+            ms[name] = round(wall_ms(torch, fn, 3), 2)
+        _, _, c = model.prefill(params, {"tokens": toks[:LM_SLOTS, :LM_CHECK_T]},
+                                cache_len=LM_CACHE)
+        tok = toks[:LM_SLOTS, LM_CHECK_T]
+        ms["decode_ep"] = round(wall_ms(torch, lambda: model.decode(params, tok, c, LM_CHECK_T,
+                                                                   mesh), 5), 2)
+        ms["decode_1dev"] = round(wall_ms(torch, lambda: model.decode(params, tok, c,
+                                                                     LM_CHECK_T), 5), 2)
+        del c
+    print(f"[{tag}] ok (a): {cfg.name} at its width, {cfg.n_layers} of 35 layers, expert-"
+          f"parallel on a (data {dp}, model {tp}) mesh of {mesh.size} x {dev}: layer 0's "
+          f"moe_ffn == moe_oracle per data shard at the per-shard capacity (the same top-{k} "
+          f"experts and kept assignments, out within {MOE_TOL} x max |out|): "
+          f"{json.dumps(summary)}; loss EP {ep:.6f} vs one device {one:.6f} (rtol "
+          f"{MESH_EP_RTOL}); {card}: ms {json.dumps(ms)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB ({phase_s():.1f} s)", flush=True)
+
+
+def mesh_pp(torch, np, dev, card, phase_s) -> None:
+    """Phase 24 (b): GPipe.  Yi-9B at its width, PP_LAYERS layers,
+    ``pp_loss_fn`` over the 'pod' axis of a (pod 2, data 2, model 2) mesh
+    on the card against ``model.loss``: the loss and the embedding's
+    gradient, ms and the bubble share."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.models.registry import build_model, param_count
+    from repro_torch.sharding import pp
+    from repro_torch.train.train_step import deterministic
+
+    tag = "mesh"
+    # --------------------------------------------- (b) GPipe over 'pod', Yi-9B
+    torch.cuda.reset_peak_memory_stats()
+    arch, width = PP_RUN
+    cfg = get_config(arch).scaled(n_layers=PP_LAYERS)
+    check(all(getattr(cfg, k) == v for k, v in width.items()),
+          f"{arch} is not at its published width {width}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params.requires_grad_(True)
+    mesh = make_mesh(*MESH_PP)
+    S, M = mesh.shape["pod"], PP_MICRO
+    batch = {k_: torch.as_tensor(v, device=dev) for k_, v in make_batch_fn(SyntheticTokens(
+        cfg.vocab_size, PP_SEQ, PP_BATCH, seed=SEED + 3))(0).items()}
+
+    def grad_of(fn):
+        for p_ in params.parameters():
+            p_.grad = None
+        with deterministic():
+            loss = fn()
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), params.embed.grad.detach().clone()
+
+    plain = lambda: model.loss(params, batch)[0]  # noqa: E731
+    piped = lambda: pp.pp_loss_fn(params, batch, cfg, mesh, microbatches=M)  # noqa: E731
+    loss_ref, g_ref = grad_of(plain)
+    loss_pp, g_pp = grad_of(piped)
+    handoff = pp.handoff_bytes(cfg, PP_BATCH, PP_SEQ, S, M)
+    check(abs(loss_pp - loss_ref) <= PP_LOSS_RTOL * abs(loss_ref),
+          f"pp_loss_fn {loss_pp} vs model.loss {loss_ref} (rtol {PP_LOSS_RTOL})")
+    bad = (g_pp - g_ref).abs() > PP_GRAD["atol"] + PP_GRAD["rtol"] * g_ref.abs()
+    check(not bool(bad.any()), f"the embedding's gradient: {int(bad.sum())} elements beyond "
+          f"rtol {PP_GRAD['rtol']}, atol {PP_GRAD['atol']}")
+    g_rel = float((g_pp - g_ref).norm() / g_ref.norm())
+    del g_pp, g_ref
+    ms = {}
+    for name, fn in (("pp", piped), ("plain", plain)):
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grad_of(fn)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = round(min(times), 1)
+    print(f"[{tag}] ok (b): {arch} at its width, {PP_LAYERS} of 48 layers "
+          f"({param_count(params):,} fp32 parameters), GPipe over the 'pod' axis of a "
+          f"{json.dumps(mesh.shape)} mesh on {dev}: {S} stages, {PP_BATCH} x {PP_SEQ} tokens "
+          f"in {M} microbatches, {M + S - 1} ticks, bubble (S-1)/(M+S-1) = "
+          f"{(S - 1) / (M + S - 1):.2f}; loss {loss_pp:.6f} vs model.loss {loss_ref:.6f} "
+          f"(rtol {PP_LOSS_RTOL}); the embedding's gradient within rtol {PP_GRAD['rtol']}, "
+          f"atol {PP_GRAD['atol']} ({g_rel:.3g} apart in relative L2); hand-offs "
+          f"{handoff / 1e6:.1f} MB forward and backward; {card}: forward + backward ms "
+          f"{json.dumps(ms)}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"({phase_s():.1f} s)", flush=True)
+    for p_ in params.parameters():
+        p_.grad = None
+    del params, model, batch
+    free_card(torch)
+
+
+def mesh_pods(torch, np, dev, card, phase_s) -> None:
+    """Phase 24 (c): MiniCPM-2B at its width, PODS_LAYERS layers, AdamW
+    steps through the int8 error-feedback exchange across the pods of a
+    (pod 2, data 1, model 1) mesh against the uncompressed step, every
+    pod's residual tree through a checkpoint."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro_torch.models.registry import build_model, param_count, stacked_leaves
+    from repro_torch.runtime.fault_tolerance import state_tree
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import init_train_state, make_optimizer, make_train_step
+    from repro_torch.train.optimizer import Optimizer, cosine_schedule
+
+    tag = "mesh"
+    # ------------------------- (c) int8 error-feedback exchange across pods
+    torch.cuda.reset_peak_memory_stats()
+    arch, width = TRAIN
+    cfg = get_config(arch).scaled(n_layers=PODS_LAYERS)
+    model = build_model(cfg)
+    mesh = make_mesh(*MESH_PODS)
+    base = make_optimizer("adamw", cosine_schedule(*TRAIN_LR))
+    probe = {}
+
+    def update(grads, st, params_):
+        """AdamW's update; the uncompressed step's gradient is kept, and
+        compressed step 1's held against it (relative L2)."""
+        if probe.pop("keep", False):
+            probe["g_u"] = {n: g.detach().clone() for n, g in grads.items()}
+        elif "g_u" in probe:
+            g_u = probe.pop("g_u")
+            num = sum(float((grads[n].float() - g_u[n].float()).square().sum()) for n in g_u)
+            den = sum(float(g_u[n].float().square().sum()) for n in g_u)
+            probe["g_err"] = (num / den) ** 0.5
+            del g_u
+        return base.update(grads, st, params_)
+
+    opt = Optimizer(base.init, update)
+    state = init_train_state(model, opt, torch.Generator(device=dev).manual_seed(0),
+                             compress_pods=True, mesh=mesh)
+    params = state["params"]
+    n_params = param_count(params)
+    batches = make_batch_fn(SyntheticTokens(cfg.vocab_size, PODS_SEQ, mesh.shape["pod"],
+                                            seed=SEED + 4))
+    # the starting parameters and the uncompressed step's update, on the host
+    p0 = {n: p_.detach().to("cpu", copy=True) for n, p_ in params.named_parameters()}
+    probe["keep"] = True
+    state, m_u = make_train_step(model, opt, mesh)(state, batches(0))
+    loss_u = float(m_u["loss"])
+    d_u = {n: p_.detach().cpu() - p0[n] for n, p_ in params.named_parameters()}
+    with torch.no_grad():  # back to the starting state
+        for n, p_ in params.named_parameters():
+            p_.copy_(p0[n])
+        for moments in (state["opt"]["m"], state["opt"]["v"]):
+            for t in moments.values():
+                t.zero_()
+        state["opt"]["step"].zero_()
+        state["step"].zero_()
+    timing = {"encode": [], "mean_of_codes": []}
+    inner = {name: getattr(gc, name) for name in timing}
+
+    def timed(name):
+        def run(*a, **k_):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*a, **k_)
+            torch.cuda.synchronize()
+            timing[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    step = make_train_step(model, opt, mesh, compress_pods=True)
+    losses, step_ms, exchange_ms = [], [], []
+    for name in timing:
+        setattr(gc, name, timed(name))
+    try:
+        for s in range(PODS_STEPS):
+            for t in timing.values():
+                t.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches(s))
+            loss = float(metrics["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            exchange_ms.append(sum(sum(t) for t in timing.values()))
+            losses.append(loss)
+            check(math.isfinite(loss), f"compressed step {s}: loss {loss}")
+            if s == 0:
+                up = {"num": 0.0, "den": 0.0, "pden": 0.0}
+                with torch.no_grad():
+                    for n, p_ in params.named_parameters():
+                        diff = (p_.detach().cpu() - p0[n]) - d_u[n]
+                        up["num"] += float(diff.square().sum())
+                        up["den"] += float(d_u[n].square().sum())
+                        up["pden"] += float((p0[n] + d_u[n]).square().sum())
+                del p0, d_u
+                update_err = (up["num"] / up["den"]) ** 0.5
+                param_err = (up["num"] / up["pden"]) ** 0.5
+    finally:
+        for name, fn in inner.items():
+            setattr(gc, name, fn)
+    wire = gc.wire_bytes([leaf.shape for leaf in stacked_leaves(params)], mesh.shape["pod"])
+    wire = wire["pod_int8"] / wire["pod_fp32"]
+    check(abs(losses[0] - loss_u) <= 1e-5 * abs(loss_u),
+          f"compressed step 1's loss {losses[0]} vs the uncompressed step's {loss_u}")
+    g_err = probe.pop("g_err")
+    check(param_err <= PODS_TOL, f"step 1 through the int8 exchange: parameters {param_err} "
+          f"apart from the uncompressed step's in relative L2 (tol {PODS_TOL})")
+    # the exchange's own error, whatever the size of the update: the mean
+    # gradient against the uncompressed one
+    check(g_err <= PODS_GRAD_TOL, f"step 1 through the int8 exchange: the gradient {g_err} "
+          f"apart from the uncompressed step's in relative L2 (tol {PODS_GRAD_TOL})")
+    # the update against the uncompressed update: a step that does not move
+    # the parameters reads 1, one that moves them backwards 2
+    check(update_err <= PODS_UPDATE_TOL, f"step 1 through the int8 exchange: the update "
+          f"{update_err} apart from the uncompressed update in relative L2 (tol "
+          f"{PODS_UPDATE_TOL})")
+    norms = [float(sum(t.abs().sum() for t in e.values())) for e in state["err"]]
+    check(all(x > 0 for x in norms) and norms[0] != norms[1],
+          f"the pods' residual trees are not two non-zero trees of their own: {norms}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ck_dir = Path(tempfile.mkdtemp(prefix="mesh_ckpt_", dir=root))
+    try:
+        t0 = time.perf_counter()
+        Checkpointer(str(ck_dir)).save(PODS_STEPS, {"err": state_tree(state["err"])})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, _ = Checkpointer(str(ck_dir)).restore()
+        restore_s = time.perf_counter() - t0
+        ck_gb = sum(f.stat().st_size for f in ck_dir.rglob("*.npy")) / 1e9
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    check(all(torch.equal(torch.as_tensor(tree["err"][str(i)][path]), t.cpu())
+              for i, e in enumerate(state["err"]) for path, t in e.items()),
+          "a pod's residual tree did not round-trip a checkpoint bit for bit")
+    del tree
+    tokens = mesh.shape["pod"] * PODS_SEQ
+    p50 = float(np.percentile(step_ms[1:], 50))
+    print(f"[{tag}] ok (c): {arch} at its width, {PODS_LAYERS} of 40 layers ({n_params:,} fp32 "
+          f"parameters), AdamW through the int8 error-feedback exchange across the pods of a "
+          f"{json.dumps(mesh.shape)} mesh on {dev}, {PODS_STEPS} steps of "
+          f"{mesh.shape['pod']} x {PODS_SEQ} tokens (a sequence a pod): losses "
+          f"{json.dumps([round(x, 4) for x in losses])}; step 1 vs the uncompressed step: loss "
+          f"{losses[0]:.6f} vs {loss_u:.6f}, parameters {param_err:.3g} apart in relative L2 "
+          f"(tol {PODS_TOL}), the gradient {g_err:.3g} (tol {PODS_GRAD_TOL}), the update "
+          f"{update_err:.3g} (tol {PODS_UPDATE_TOL}); "
+          f"residual L1 per pod {json.dumps([round(x, 3) for x in norms])}, through a "
+          f"checkpoint torch.equal ({ck_gb:.2f} GB, save {save_s:.1f} s, restore "
+          f"{restore_s:.1f} s); wire bytes int8 / fp32 {wire:.4f}; {card}: step ms p50 "
+          f"{p50:.1f} (the first {step_ms[0]:.1f}), quantize and exchange ms p50 "
+          f"{float(np.percentile(exchange_ms[1:], 50)):.1f}, {tokens / p50 * 1e3:.1f} tokens/s; "
+          f"peak memory {peak:.1f} GB ({phase_s():.1f} s)", flush=True)
+    del state, params, model, opt, step
+    free_card(torch)
+
+
+def mesh_dryrun(torch, np, dev, card, phase_s) -> None:
+    """Phase 24 (d): ``launch.dryrun``'s DRYRUN_CELLS on the 16 x 16
+    production mesh, on the meta device: nothing may be allocated on the
+    card."""
+    from repro_torch.launch.dryrun import run_cell
+
+    tag = "mesh"
+    # ------------------------------------- (d) the dry run, on the meta device
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cells = {}
+    for arch, shapes in DRYRUN_CELLS:
+        for shape in shapes:
+            r = run_cell(arch, shape, False, force=True)
+            check(r.get("status") == "ok", f"dry run {arch} x {shape}: {r.get('error')}")
+            cells[f"{arch}/{shape}"] = {
+                "GB_per_device": round(r["memory"]["per_device_total"] / 1e9, 3),
+                "flops": r["step_stats"]["flops"],
+                "collective_bytes": r["step_stats"]["collective_bytes"],
+                "s": round(r["build_s"] + r["analyze_s"], 1)}
+    check(torch.cuda.memory_allocated() == before
+          and torch.cuda.max_memory_allocated() == before,
+          f"the dry run allocated on the card: {torch.cuda.memory_allocated()} bytes, peak "
+          f"{torch.cuda.max_memory_allocated()}, before {before}")
+    print(f"[{tag}] ok (d): the dry run on the 16 x 16 production mesh (device meta): "
+          f"{json.dumps(cells)}; CUDA memory unchanged ({before} bytes) ({phase_s():.1f} s)",
+          flush=True)
+
+
+def mesh_phase(torch, np, dev, card, phase_s, parts="bcd") -> None:
+    """Phase 24 (b)-(d), the mesh: GPipe, the int8 exchange across pods,
+    the dry run (``parts`` picks them)."""
+    for part, fn in (("b", mesh_pp), ("c", mesh_pods), ("d", mesh_dryrun)):
+        if part in parts:
+            fn(torch, np, dev, card, phase_s)
 
 
 def batch_serve(torch, kernels, model, params, batch, store, r0):
@@ -4265,7 +4678,12 @@ def main() -> int:
     knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"],
                 tag="mamba")
     # --------------------------------- 19. Arctic-480B (MoE), 2 of 35 layers
-    arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, st["phase_s"])
+    arctic = arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records,
+                          st["phase_s"])
+    # ------------- 24 (a). the mesh: Arctic expert-parallel, on phase 19's weights
+    mesh_ep(torch, np, dev, card, arctic, st["phase_s"])
+    del arctic
+    free_card(torch)
     # ----------------------------------- 20. Hymba-1.5B (hybrid), batch path
     hybrid_phase(torch, np, dev, card, st["phase_s"])
     # ------------------ 21-22. Whisper-medium (encdec) and the VLM, batch path
@@ -4274,7 +4692,9 @@ def main() -> int:
                     tag)
     # ------------------------------------ 23. training MiniCPM-2B (AdamW)
     train_phase(torch, np, dev, card, st["phase_s"])
-    print(f"[train] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
+    # ---------------------- 24 (b)-(d). the mesh: GPipe, int8 pods, the dry run
+    mesh_phase(torch, np, dev, card, st["phase_s"])
+    print(f"[mesh] the whole run took {time.perf_counter() - st['t_start']:.1f} s", flush=True)
 
     print(card)
     print(json.dumps({"kernels": records}))

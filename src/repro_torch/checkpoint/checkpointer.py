@@ -46,10 +46,16 @@ A bfloat16 tensor, which has no numpy form, is stored bit for bit: its
 16-bit patterns as a uint16 ``.npy``, named ``"bfloat16"`` in the
 manifest as the reference names its bfloat16 leaves.  Restore returns
 host (numpy) arrays, and a bfloat16 leaf as a CPU ``torch.bfloat16``
-tensor; the caller places them on its device.  A sharded collection
-splits them over its shards itself
-(``store.router.ShardedCollection.restore``), so there is no
-``shardings=``.
+tensor; the caller places them on its device, or passes ``shardings=``
+(one ``sharding.rules.NamedSharding``, or a tree of them shaped as the
+checkpoint's): each leaf is then checked against its spec (an axis of
+the spec's mesh a dim, dividing it) and returned as a host tensor.  The
+single controller holds whole tensors on the mesh's merge device, and the
+caller copies each leaf there into its own state (``runtime``'s
+``load_state``), so a restore never holds a second copy of the state on
+the device.  A sharding on another mesh than the one that saved the tree
+is an elastic restore.  A sharded collection splits its arrays over
+its shards itself (``store.router.ShardedCollection.restore``).
 
 Fault sites (active only under an installed ``resilience.faults`` plan):
 ``snapshot.write.torn`` truncates a leaf file mid-write and simulates a
@@ -157,6 +163,40 @@ def _unflatten(paths, leaves):
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return tree
+
+
+def _sharding_at(shardings, path):
+    """The sharding of the leaf at ``path``: one for every leaf, or the
+    entry at the same key path of a tree of them."""
+    node = shardings
+    for k in path:
+        if hasattr(node, "spec"):
+            break
+        if not isinstance(node, dict) or k not in node:
+            raise ValueError(f"no sharding for the leaf {'/'.join(path)}")
+        node = node[k]
+    if not hasattr(node, "spec"):
+        raise ValueError(f"no sharding for the leaf {'/'.join(path)}")
+    return node
+
+
+def _placed(leaf, sharding, path) -> torch.Tensor:
+    """``leaf`` as a host tensor, after its spec is checked against its
+    shape."""
+    mesh, spec = sharding.mesh, tuple(sharding.spec)
+    shape = tuple(leaf.shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"{'/'.join(path)}: spec {spec} has more entries than shape {shape}")
+    for dim, ax in zip(shape, spec):
+        names = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        size = 1
+        for a in names:
+            if a not in mesh.shape:
+                raise ValueError(f"{'/'.join(path)}: the mesh has no axis {a!r}")
+            size *= mesh.shape[a]
+        if dim % size:
+            raise ValueError(f"{'/'.join(path)}: dim {dim} does not split over {ax} ({size})")
+    return leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
 
 
 def _leaf_blob(a: np.ndarray) -> bytes:
@@ -462,7 +502,7 @@ class Checkpointer:
             )
         return paths
 
-    def _restore_step(self, step: int, keys):
+    def _restore_step(self, step: int, keys, shardings=None):
         with self._reading_lock:
             self._reading.add(step)
         try:
@@ -477,10 +517,15 @@ class Checkpointer:
         finally:
             with self._reading_lock:
                 self._reading.discard(step)
+        if shardings is not None:
+            leaves = [_placed(leaf, _sharding_at(shardings, path), path)
+                      for leaf, path in zip(leaves, paths)]
         return _unflatten(paths, leaves), meta
 
-    def restore(self, step: int | None = None, *, keys=None):
-        """Returns (tree, meta): the tree as nested dicts of numpy arrays.
+    def restore(self, step: int | None = None, *, keys=None, shardings=None):
+        """Returns (tree, meta): the tree as nested dicts of numpy arrays
+        (with ``shardings``, of host tensors checked against them; see the
+        module doc).
 
         ``keys`` names the leaves of a manifest without key paths (one
         the reference wrote): ``keys(meta, n_leaves)`` returns their key
@@ -497,7 +542,7 @@ class Checkpointer:
         last_err: Exception | None = None
         for s in candidates:
             try:
-                return self._restore_step(s, keys)
+                return self._restore_step(s, keys, shardings)
             except (CorruptSnapshot, FileNotFoundError, OSError) as e:
                 last_err = e
                 if step is not None:

@@ -12,8 +12,9 @@ needed at the merge).
 **The mesh is single-controller.**  One process drives every shard, as
 one process drives a JAX ``shard_map``: a :class:`Mesh` is an ordered
 tuple of devices (which may repeat — four shards may share one card, as
-the reference's tests share one CPU among forced host devices) and one
-axis name.  The collectives become tensor ops on the merge device, the
+the reference's tests share one CPU among forced host devices) laid out
+over one or more named axes (a fleet uses one; the model's sharding rules
+read ``data``, ``model`` and ``pod``, see ``repro_torch.sharding``).  The collectives become tensor ops on the merge device, the
 mesh's first device: ``all_gather`` is the per-shard results moved there
 with ``non_blocking=True`` and stacked, ``psum`` a ``sum(0)``, ``pmax``
 an ``amax(0)``, and compaction's ``all_to_all`` the slices of each
@@ -78,40 +79,80 @@ _BLOCK_FIELDS = ("proj_blocks", "ids_blocks", "mbr_lo", "mbr_hi", "norm_blocks")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A one-axis device mesh: ``devices[r]`` holds shard ``r``.
+    """A device mesh with named axes over a grid of devices.
 
-    Devices may repeat (several shards on one card).  ``shape`` maps the
-    axis name to the shard count, so ``mesh.shape[axis]`` reads as it
-    does on a ``jax.sharding.Mesh``.  The first device is the merge
-    device: replicated results, the payload and the id maps live there.
+    ``axis`` is one axis name (``Mesh(devices, "data")``: ``devices[r]``
+    holds shard ``r``) or a tuple of names, and ``dims`` their sizes in
+    the same order (row-major over ``devices``, as a ``jax.sharding.Mesh``
+    lays out its device grid; None: one axis over every device).  Devices
+    may repeat (several shards on one card).  ``shape`` maps each axis
+    name to its size, in order, and ``axis_names`` is the tuple of names,
+    so both read as they do on a ``jax.sharding.Mesh``.  The first device
+    is the merge device: replicated results, the payload and the id maps
+    live there.
     """
 
     devices: tuple
-    axis: str = "data"
+    axis: str | tuple = "data"
+    dims: tuple | None = None
 
     def __post_init__(self):
         devs = tuple(torch.device(d) for d in self.devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
+        names = (self.axis,) if isinstance(self.axis, str) else tuple(self.axis)
+        dims = (len(devs),) if self.dims is None else tuple(int(n) for n in self.dims)
+        if len(dims) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"axes {names} do not match the sizes {dims}")
+        if math.prod(dims) != len(devs):
+            raise ValueError(f"a mesh of {dims} needs {math.prod(dims)} devices, got {len(devs)}")
         object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "dims", dims)
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis,) if isinstance(self.axis, str) else tuple(self.axis)
 
     @property
     def shape(self) -> dict:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
 
     @property
     def merge_device(self) -> torch.device:
         return self.devices[0]
 
+    def device_at(self, **coords) -> torch.device:
+        """The device at the given axis coordinates (0 on every axis not
+        named): ``mesh.device_at(pod=1)``."""
+        flat = 0
+        for name, n in zip(self.axis_names, self.dims):
+            i = int(coords.pop(name, 0))
+            if not 0 <= i < n:
+                raise IndexError(f"{name}={i} outside an axis of {n}")
+            flat = flat * n + i
+        if coords:
+            raise KeyError(f"the mesh has no axes {sorted(coords)}")
+        return self.devices[flat]
 
-def make_mesh(shards: int, axis: str = "data", devices=None) -> Mesh:
-    """A mesh of ``shards`` shards over ``axis``.
 
-    ``devices=None`` cycles the CUDA devices over the shards (four shards
+def make_mesh(shards, axis="data", devices=None) -> Mesh:
+    """A mesh of ``shards`` shards over ``axis``, or, with a tuple of sizes
+    and a tuple of axis names, a mesh over those axes
+    (``make_mesh((2, 4), ("data", "model"))``, as ``jax.make_mesh``).
+
+    ``devices=None`` cycles the CUDA devices over the grid (four shards
     on a one-card machine all sit on ``cuda:0``); without CUDA it raises —
     pass ``devices=["cpu"] * shards`` to run on the CPU.  A list of
-    ``shards`` devices is taken as given."""
-    shards = int(shards)
+    as many devices as the grid holds is taken as given."""
+    dims = (int(shards),) if isinstance(shards, int) else tuple(int(n) for n in shards)
+    names = axis if isinstance(axis, str) else tuple(axis)
+    if isinstance(names, str) and len(dims) != 1:
+        raise ValueError(f"make_mesh: one axis name for the sizes {dims}")
+    total = math.prod(dims)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -120,11 +161,11 @@ def make_mesh(shards: int, axis: str = "data", devices=None) -> Mesh:
                 "every shard) to run on the CPU"
             )
         count = torch.cuda.device_count()
-        devices = [torch.device("cuda", r % count) for r in range(shards)]
+        devices = [torch.device("cuda", r % count) for r in range(total)]
     devices = tuple(devices)
-    if len(devices) != shards:
-        raise ValueError(f"make_mesh: {len(devices)} devices for {shards} shards")
-    return Mesh(devices, axis)
+    if len(devices) != total:
+        raise ValueError(f"make_mesh: {len(devices)} devices for {total} shards")
+    return Mesh(devices, names, None if isinstance(names, str) else dims)
 
 
 @dataclasses.dataclass

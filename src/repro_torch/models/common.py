@@ -17,6 +17,7 @@ __all__ = [
     "DTYPES",
     "compute_dtype",
     "pad_vocab",
+    "is_meta",
     "dense_init",
     "embed_init",
     "rmsnorm",
@@ -69,11 +70,20 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def is_meta(device) -> bool:
+    """Whether ``device`` is the meta device: shapes and dtypes without
+    storage.  The initialisers then draw nothing and allocate nothing (the
+    dry run's parameters, ``launch.steps``)."""
+    return device is not None and torch.device(device).type == "meta"
+
+
 def dense_init(generator: torch.Generator, shape, in_axis_size=None, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun-style): a standard normal
     truncated to [-3, 3], times 1/sqrt(fan_in), drawn on the generator's
     device and placed on ``device``."""
+    if is_meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     out = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=generator)
@@ -83,6 +93,8 @@ def dense_init(generator: torch.Generator, shape, in_axis_size=None, dtype=torch
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
                device=None) -> torch.Tensor:
+    if is_meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     out = torch.randn(shape, generator=generator, device=generator.device).mul_(0.02)
     return out.to(device=device if device is not None else generator.device, dtype=dtype)
 

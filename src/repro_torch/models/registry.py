@@ -237,13 +237,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def train_state_from_reference(state_tree: dict, cfg: ModelConfig, device=None) -> dict:
+def train_state_from_reference(state_tree: dict, cfg: ModelConfig, device=None,
+                               pods: int = 1) -> dict:
     """A reference train state (``{"params", "opt", "step"}`` as numpy
     trees: AdamW's ``m``/``v``, or Adafactor's ``v`` with ``vr``/``vc`` or
     ``v`` at each leaf) as the port's, on ``device`` (the CUDA device when
     None): the parameters a module with gradients on, the optimizer state
     one stacked tensor a leaf keyed by its dotted path, and the steps int32
-    CPU scalars (see ``train.optimizer``)."""
+    CPU scalars (see ``train.optimizer``).  A reference ``err`` tree (the
+    pod-compressed state, as a host read sees it: pod 0's) becomes the
+    residual tree of each of ``pods`` pods."""
     device = resolve_device(device)
     params = params_from_reference(state_tree["params"], cfg, device)
     params.requires_grad_(True)
@@ -257,14 +260,18 @@ def train_state_from_reference(state_tree: dict, cfg: ModelConfig, device=None) 
     opt = {name: (torch.tensor(int(np.asarray(tree)), dtype=torch.int32) if name == "step"
                   else {path: carry(_at(tree, path)) for path in paths})
            for name, tree in state_tree["opt"].items()}
-    return {"params": params, "opt": opt,
-            "step": torch.tensor(int(np.asarray(state_tree["step"])), dtype=torch.int32)}
+    state = {"params": params, "opt": opt,
+             "step": torch.tensor(int(np.asarray(state_tree["step"])), dtype=torch.int32)}
+    if "err" in state_tree:
+        state["err"] = [{path: _tensor(_at(state_tree["err"], path), device) for path in paths}
+                        for _ in range(pods)]
+    return state
 
 
 def train_state_to_reference(state: dict) -> dict:
     """The inverse of ``train_state_from_reference``: the reference's tree
     of numpy arrays, the per-layer parameters stacked (bf16 leaves as
-    float32, exactly)."""
+    float32, exactly); pod 0's residual tree as the reference's ``err``."""
     leaves = stacked_leaves(state["params"])
     params = _nest({leaf.path: (np.stack([_host(p) for p in leaf.params]) if leaf.stacked
                                 else _host(leaf.params[0])) for leaf in leaves})
@@ -277,4 +284,7 @@ def train_state_to_reference(state: dict) -> dict:
     opt = {name: (np.int32(int(tree)) if name == "step"
                   else _nest({path: host(node) for path, node in tree.items()}))
            for name, tree in state["opt"].items()}
-    return {"params": params, "opt": opt, "step": np.int32(int(state["step"]))}
+    out = {"params": params, "opt": opt, "step": np.int32(int(state["step"]))}
+    if "err" in state:
+        out["err"] = _nest({path: _host(t) for path, t in state["err"][0].items()})
+    return out

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, einsum, matmul, rmsnorm
+from .common import dense_init, einsum, is_meta, matmul, rmsnorm
 
 __all__ = ["CONV_W", "ssm_dims", "ssm_params", "ssm_forward", "ssm_decode"]
 
@@ -39,6 +39,8 @@ def ssm_dims(cfg):
 
 
 def _uniform(generator, shape, lo, hi, device):
+    if is_meta(device):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     out = torch.empty(shape, dtype=torch.float32, device=generator.device)
     out.uniform_(lo, hi, generator=generator)
     return out.to(device=device if device is not None else generator.device)

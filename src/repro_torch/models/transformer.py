@@ -213,10 +213,17 @@ def _ffn(h2, bp, cfg, mesh):
     """The FFN sub-layer of the attention families: (out, aux)."""
     if cfg.family != "moe":
         return ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind), {}
-    out, aux = ffn_mod.moe_ffn(h2, bp["moe"], cfg, mesh=mesh)
+    out, aux = ffn_mod.moe_ffn(h2, bp["moe"], cfg, mesh=mesh, dp_axes=_dp_axes(mesh))
     if cfg.dense_residual:
         out = out + ffn_mod.dense_ffn(h2, bp["ffn"], cfg.ffn_kind)
     return out, aux
+
+
+def _dp_axes(mesh):
+    """The mesh's data axes, 'pod' and 'data', in its order."""
+    if mesh is None:
+        return ("data",)
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 def block_forward(x, bp, cfg, mesh=None, *, positions, window=0, want_cache=False):
@@ -263,8 +270,9 @@ def rematerialised(fn, *args, remat: bool = True):
 def forward(params: Transformer, tokens, cfg, mesh=None, *, want_cache=False, remat=True):
     """Token ids (B, T) -> (hidden (B,T,D), caches, aux).  With ``remat``
     each layer is rematerialised when autograd records the pass.  ``mesh``
-    (sharding in the reference) has no effect on one device; a mesh with a
-    'model' axis larger than 1 is refused by the MoE FFN."""
+    (sharding in the reference) changes no value on the single-controller
+    mesh, but a 'model' axis larger than 1 runs the MoE FFN expert-parallel,
+    with the reference's per-data-shard capacity (see ``models.ffn``)."""
     dt = compute_dtype(cfg)
     tokens = _tokens(tokens, params)
     B, T = tokens.shape

@@ -30,6 +30,8 @@ import time
 import torch
 
 from ..checkpoint.checkpointer import Checkpointer, _host_tree
+from ..models.registry import stacked_leaves
+from ..sharding.rules import P, NamedSharding
 from ..resilience.stragglers import StragglerMonitor
 
 __all__ = ["StragglerMonitor", "TrainSupervisor", "state_tree", "load_state"]
@@ -37,11 +39,14 @@ __all__ = ["StragglerMonitor", "TrainSupervisor", "state_tree", "load_state"]
 
 def state_tree(state):
     """The nested dict of tensors a train state is checkpointed as: a
-    module becomes ``{parameter name: tensor}``."""
+    module becomes ``{parameter name: tensor}``, a list (the per-pod
+    residual trees) ``{"0": ..., "1": ...}``."""
     if isinstance(state, torch.nn.Module):
         return {name: p.detach() for name, p in state.named_parameters()}
     if isinstance(state, dict):
         return {k: state_tree(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return {str(i): state_tree(v) for i, v in enumerate(state)}
     return state
 
 
@@ -57,7 +62,33 @@ def load_state(state, tree):
         for k in state:
             state[k] = load_state(state[k], tree[k])
         return state
+    if isinstance(state, list):
+        for i in range(len(state)):
+            state[i] = load_state(state[i], tree[str(i)])
+        return state
     return state.copy_(torch.as_tensor(tree))
+
+
+def _tensor_shardings(state, shardings):
+    """``shardings`` in ``state_tree``'s form: a module's stacked leaf's
+    sharding becomes one a parameter, its spec without the layer entry
+    where the reference stacks; a list's one a pod becomes ``{"0": ...}``.
+    A single sharding stays as it is."""
+    if shardings is None or hasattr(shardings, "spec"):
+        return shardings
+    if isinstance(state, torch.nn.Module):
+        out = {}
+        for leaf in stacked_leaves(state):
+            sh = shardings[leaf.path]
+            if leaf.stacked:
+                sh = NamedSharding(sh.mesh, P(*tuple(sh.spec)[1:]))
+            out.update((name, sh) for name in leaf.names)
+        return out
+    if isinstance(state, dict):
+        return {k: _tensor_shardings(v, shardings[k]) for k, v in state.items()}
+    if isinstance(state, list):
+        return {str(i): _tensor_shardings(v, shardings[i]) for i, v in enumerate(state)}
+    return shardings
 
 
 def _leaves(tree):
@@ -92,19 +123,22 @@ class TrainSupervisor:
         self.monitor = StragglerMonitor()
         self.restarts = 0
 
-    def _restore(self, state):
-        tree, meta = self.ckpt.restore()
+    def _restore(self, state, shardings=None):
+        tree, meta = self.ckpt.restore(shardings=shardings)
         return load_state(state, tree), meta["next_step"]
 
     def run(self, init_state, step_fn, batch_fn, num_steps: int,
             failure_hook=None, state_shardings=None, log=None):
-        if state_shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings is not ported (ROADMAP A17, item 7: sharding/*)")
+        """Run ``num_steps`` steps from the latest checkpoint (or from
+        ``init_state``).  ``state_shardings``: one sharding, or the tree
+        ``sharding.rules.named(mesh, state_specs(...))`` gives, onto which
+        every restore places and checks the state (an elastic resume when
+        the mesh differs from the one that saved it)."""
+        shardings = _tensor_shardings(init_state, state_shardings)
         state = init_state
         start, initial = 0, None
         if self.ckpt.latest_step() is not None:
-            state, start = self._restore(state)
+            state, start = self._restore(state, shardings)
         else:
             initial = _host_tree(state_tree(state), copy=True)
 
@@ -138,7 +172,7 @@ class TrainSupervisor:
                 if self.ckpt.latest_step() is None:
                     state, step = load_state(state, initial), 0
                 else:
-                    state, step = self._restore(state)
+                    state, step = self._restore(state, shardings)
         self.ckpt.wait()
         self.ckpt.save(num_steps, state_tree(state), meta={"next_step": num_steps})
         return state

@@ -23,8 +23,17 @@ runs cuBLAS before its first step sets it first, as ``chip_smoke.py``
 does).  The train state's parameters must have gradients on
 (``init_train_state``, ``models.registry.train_state_from_reference``).
 
-The reference's pod-compressed flavour (``compress_pods=True``, int8
-error-feedback all-reduce across pods) is not ported: it raises.
+``compress_pods=True`` (a mesh with a 'pod' axis) is the reference's
+pod-compressed flavour.  The batch is cut into the 'pod' axis's equal
+parts, in order; each pod's gradients are computed from its part (with
+``accum_steps`` as above) and go through the int8 error-feedback
+exchange of ``train.grad_compression`` at once, a pod at a time (its
+gradients, stacked by reference leaf, plus its residual, quantized; the
+new residual kept); then the mean of the pods' dequantized codes becomes
+every parameter's gradient, the loss is the mean of the pods' losses, and
+one optimizer update runs.  ``state["err"]`` holds one residual tree a
+pod, as the reference's ``shard_map`` with ``out_specs=P()`` keeps one a
+pod device (a host read of the reference's state sees pod 0's).
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import os
 
 import torch
 
+from ..models.registry import stacked_leaves
+from . import grad_compression as gc
 from .optimizer import global_norm
 
 __all__ = ["make_train_step", "init_train_state"]
@@ -41,16 +52,29 @@ __all__ = ["make_train_step", "init_train_state"]
 CUBLAS_WORKSPACE = ":4096:8"  # a fixed cuBLAS workspace: reproducible products
 
 
-def init_train_state(model, opt, generator: torch.Generator, device=None) -> dict:
+def init_train_state(model, opt, generator: torch.Generator, device=None,
+                     compress_pods=False, mesh=None) -> dict:
     """``{"params", "opt", "step"}``: the model's parameters drawn from
     ``generator`` on ``device`` (the CUDA device when None) with gradients
-    on, the optimizer's state, and the step (an int32 CPU scalar)."""
+    on, the optimizer's state, and the step (an int32 CPU scalar).  With
+    ``compress_pods`` also ``"err"``: one zero residual tree for each pod
+    of ``mesh``'s 'pod' axis.  ``device="meta"`` gives the state's shapes
+    and allocates nothing."""
     if torch.is_inference_mode_enabled():
         raise RuntimeError("a train state cannot be made under torch.inference_mode")
     params = model.init(generator, device=device)
     params.requires_grad_(True)
-    return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32)}
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    if compress_pods:
+        state["err"] = gc.init_error_state(params, _pods(mesh))
+    return state
+
+
+def _pods(mesh) -> int:
+    if mesh is None or "pod" not in mesh.axis_names:
+        raise ValueError("compress_pods needs a mesh with a 'pod' axis")
+    return mesh.shape["pod"]
 
 
 @contextlib.contextmanager
@@ -87,10 +111,7 @@ def make_train_step(model, opt, mesh=None, compress_pods=False, accum_steps=1):
     """Returns step(state, batch) -> (state, metrics): ``loss`` (a float32
     device scalar), ``grad_norm`` (the global norm of the gradients) and
     ``lr``."""
-    if compress_pods:
-        raise NotImplementedError(
-            "int8 error-feedback gradient compression across pods is not ported "
-            "(ROADMAP A17, item 10: train/grad_compression)")
+    pods = _pods(mesh) if compress_pods else 1
 
     def grads_of(params, batch) -> torch.Tensor:
         for p in params.parameters():
@@ -110,11 +131,45 @@ def make_train_step(model, opt, mesh=None, compress_pods=False, accum_steps=1):
                 p.grad.mul_(inv)
         return l_sum * inv
 
+    def pod_grads(state, batch):
+        """The pods' gradients through the compressed exchange: (the mean
+        loss, {parameter name: float32 gradient})."""
+        params = state["params"]
+        leaves = stacked_leaves(params)
+        codes, losses = [], []
+        for pod, part in enumerate(_microbatches(batch, pods)):
+            losses.append(grads_of(params, part))
+            err, pod_codes = state["err"][pod], {}
+            with torch.no_grad():
+                for leaf in leaves:  # a leaf at a time: one stacked copy at once
+                    g = (torch.stack([p.grad for p in leaf.params]) if leaf.stacked
+                         else leaf.params[0].grad)
+                    for p in leaf.params:
+                        p.grad = None
+                    c, r = gc.encode({leaf.path: g}, {leaf.path: err[leaf.path]})
+                    pod_codes.update(c)
+                    err[leaf.path] = r[leaf.path]
+                    del g
+            codes.append(pod_codes)
+        with torch.no_grad():
+            mean = gc.mean_of_codes(codes, {leaf.path: leaf.shape for leaf in leaves})
+        del codes
+        # the mean stays float32 whatever the parameters' dtype, as the
+        # reference hands its exchange's output to the optimizer
+        grads = {}
+        for leaf in leaves:
+            rows = mean.pop(leaf.path)
+            grads.update(zip(leaf.names, rows.unbind(0) if leaf.stacked else [rows]))
+        return sum(losses[1:], losses[0]) / pods, grads
+
     def step(state, batch):
         params = state["params"]
         with deterministic():
-            loss = grads_of(params, batch)
-        grads = {name: p.grad for name, p in params.named_parameters()}
+            if compress_pods:
+                loss, grads = pod_grads(state, batch)
+            else:
+                loss = grads_of(params, batch)
+                grads = {name: p.grad for name, p in params.named_parameters()}
         params, state["opt"], stats = opt.update(grads, state["opt"], params)
         grad_norm = stats["grad_norm"] if "grad_norm" in stats else global_norm(grads)
         del grads

@@ -133,6 +133,12 @@ __all__ = [
     "ref_grad_cast_vjp",
     "RefTrain",
     "ref_schedules",
+    "mesh_reference",
+    "MESH_BATCH_SEED",
+    "MOE_LOW_FACTOR",
+    "ref_quantize",
+    "ref_compressed_pmean",
+    "ref_specs",
 ]
 
 INDEX_FIELDS = (
@@ -498,7 +504,16 @@ def ref_exports(module: str, defined: bool = False) -> list[str]:
     import importlib
     import types
 
-    mod = importlib.import_module("repro" + (f".{module}" if module else ""))
+    # repro.launch.dryrun forces 512 host devices through XLA_FLAGS when it
+    # is imported: keep this process's flags (no backend starts meanwhile)
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        mod = importlib.import_module("repro" + (f".{module}" if module else ""))
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
     if defined:
         return [n for n, v in vars(mod).items()
                 if not n.startswith("_") and getattr(v, "__module__", None) == mod.__name__]
@@ -1011,3 +1026,224 @@ class RefTrain:
         self.state, metrics = self._step(self.state, {k: jnp.asarray(v)
                                                       for k, v in batch.items()})
         return {k: float(v) for k, v in metrics.items()}
+
+
+class _SpecMesh:
+    """What the reference's sharding rules read of a mesh: its axis sizes
+    and names (no devices needed)."""
+
+    def __init__(self, shape, names):
+        self.shape = dict(zip(names, shape))
+        self.axis_names = tuple(names)
+
+
+def ref_specs(arch: str, mesh_shape, axis_names) -> dict:
+    """The reference's spec trees for ``arch`` (its full config, shapes
+    from ``jax.eval_shape``) on a mesh of ``mesh_shape``: ``param_specs``
+    with fsdp on and off, ``state_specs`` of the AdamW and Adafactor
+    states (pod-compressed: with ``err``), and for every shape in
+    ``SHAPES`` the ``batch_specs`` (train, prefill) or ``cache_specs``
+    (decode) of its inputs.  Each as {'/'-joined key path: spec tuple}."""
+    from repro.configs import SHAPES, get_config
+    from repro.models.registry import build_model
+    from repro.sharding import rules
+    from repro.train import make_optimizer
+    from repro.train.train_step import init_train_state
+
+    mesh = _SpecMesh(mesh_shape, axis_names)
+    model = build_model(get_config(arch))
+
+    def flat(tree):
+        leaves = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+        return {rules._path_str(kp): tuple(s) for kp, s in leaves}
+
+    params = jax.eval_shape(model.init, jax.random.key(0))
+    out = {f"params/fsdp={f}": flat(rules.param_specs(params, mesh, fsdp=f))
+           for f in (True, False)}
+    for name in ("adamw", "adafactor"):
+        opt = make_optimizer(name)
+        state = jax.eval_shape(lambda k: init_train_state(model, opt, k, compress_pods=True),
+                               jax.random.key(0))
+        out[f"state/{name}"] = flat(rules.state_specs(
+            state, rules.param_specs(state["params"], mesh), mesh))
+    for sname, shape in SHAPES.items():
+        spec = model.input_specs(shape)
+        out[f"inputs/{sname}"] = flat(rules.cache_specs(spec["caches"], mesh)
+                                      if shape.phase == "decode"
+                                      else rules.batch_specs(spec["batch"], mesh))
+    return out
+
+
+def ref_quantize(x):
+    """``repro.train.grad_compression.quantize`` of ``x``: numpy (codes,
+    scales, residual)."""
+    from repro.train import grad_compression as gc
+
+    return tuple(np.asarray(a) for a in gc.quantize(jnp.asarray(x)))
+
+
+def ref_compressed_pmean(trees: list, errs: list):
+    """``compressed_pmean`` over a 'pod' axis of ``len(trees)`` (vmapped:
+    its ``all_gather`` and ``psum`` run over the mapped axis): (the mean
+    tree, one residual tree a pod), numpy."""
+    from repro.train import grad_compression as gc
+
+    stack = lambda ts: jax.tree.map(lambda *a: jnp.stack(a), *ts)  # noqa: E731
+    mean, err = jax.vmap(lambda g, e: gc.compressed_pmean(g, "pod", e), axis_name="pod")(
+        stack([_jnp_tree(t) for t in trees]), stack([_jnp_tree(e) for e in errs]))
+    mean = jax.tree.map(lambda a: np.asarray(a[0]), mean)
+    return mean, [jax.tree.map(lambda a, i=i: np.asarray(a[i]), err) for i in range(len(trees))]
+
+
+# ---------------------------------------------------------------------------
+# The reference on a mesh of 8 forced host devices (``tests/test_distributed.py``'s
+# MoE and PP parity setups, and the pod-compressed train step), in a
+# subprocess; the test process keeps its one device
+# ---------------------------------------------------------------------------
+
+MESH_BATCH_SEED = 4
+MOE_LOW_FACTOR = 0.5
+
+_MESH_SCRIPT = r"""
+import sys
+from pathlib import Path
+import numpy as np
+import jax, jax.numpy as jnp
+import _torch_parity as R
+from repro.configs import get_config
+from repro.models.registry import build_model
+
+out, part = Path(sys.argv[1]), sys.argv[2]
+assert len(jax.devices()) == 8, jax.devices()
+res = {}
+
+def put(prefix, tree):
+    for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        res[prefix + "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)] = \
+            np.asarray(v, np.float32) if np.asarray(v).dtype.name == "bfloat16" else np.asarray(v)
+
+def token_batch(cfg, shape):
+    ks = jax.random.split(jax.random.key(1), 2)
+    return {"tokens": jax.random.randint(ks[0], shape, 0, cfg.vocab_size),
+            "labels": jax.random.randint(ks[1], shape, 0, cfg.vocab_size)}
+
+if part == "ep":
+    # tests/test_distributed.py's SCRIPT_MOE_PARITY, and layer 0's moe_ffn alone
+    from repro.models import ffn
+    cfg = get_config("arctic-480b").smoke().scaled(n_layers=2)
+    model = build_model(cfg)
+    params = model.init(jax.random.key(0))
+    batch = token_batch(cfg, (4, 16))
+    res["loss_1dev"] = np.float32(jax.jit(lambda p, b: model.loss(p, b)[0])(params, batch))
+    mesh = jax.make_mesh((2, 4), ("data", "model"))
+    with mesh:
+        res["loss_ep"] = np.float32(jax.jit(lambda p, b: model.loss(p, b, mesh)[0])(params, batch))
+    put("params/", params)
+    put("batch/", batch)
+    moe = jax.tree.map(lambda a: a[0], params["blocks"]["moe"])
+    x = np.random.default_rng(3).standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    res["x"] = x
+    with mesh:
+        o, aux = jax.jit(lambda x, p: ffn.moe_ffn(x, p, cfg, mesh=mesh, dp_axes=("data",)))(
+            jnp.asarray(x), moe)
+    res["moe_ep"], res["moe_lb"] = np.asarray(o), np.float32(aux["load_balance"])
+    low = cfg.scaled(moe_capacity_factor=R.MOE_LOW_FACTOR)  # a capacity that drops more
+    with mesh:
+        res["moe_ep_low"] = np.asarray(jax.jit(lambda x, p: ffn.moe_ffn(
+            x, p, low, mesh=mesh, dp_axes=("data",))[0])(jnp.asarray(x), moe))
+    # build_step's spec trees on the same mesh, for two smoke configs
+    import json
+    from repro.configs import SHAPES
+    from repro.launch.steps import build_step
+    from repro.sharding import rules
+    specs = {}
+    for arch in ("yi-9b", "arctic-480b"):
+        m_ = build_model(get_config(arch).smoke())
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            with mesh:
+                _, _, in_sh, out_sh, donate = build_step(m_, SHAPES[shape], mesh,
+                                                         batch_override=8)
+            flat = {}
+            for tag, tree in (("in", in_sh), ("out", out_sh)):
+                for kp, sh in jax.tree_util.tree_flatten_with_path(tree)[0]:
+                    flat[tag + "/" + rules._path_str(kp)] = list(sh.spec)
+            specs[f"{arch}/{shape}"] = {"specs": flat, "donate": list(donate)}
+    res["build_step"] = np.array(json.dumps(specs))
+elif part == "pp":
+    # tests/test_distributed.py's SCRIPT_PP_PARITY
+    from repro.sharding.pp import pp_loss_fn
+    cfg = get_config("yi-9b").smoke().scaled(n_layers=4)
+    model = build_model(cfg)
+    params = model.init(jax.random.key(0))
+    batch = token_batch(cfg, (8, 16))
+    res["loss"] = np.float32(jax.jit(lambda p, b: model.loss(p, b)[0])(params, batch))
+    mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
+    f = lambda p, b: pp_loss_fn(p, b, cfg, mesh, microbatches=4)
+    with mesh:
+        res["loss_pp"] = np.float32(jax.jit(f)(params, batch))
+        g_pp = jax.jit(jax.grad(f))(params, batch)
+    g_ref = jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(params, batch)
+    res["grad_embed"] = np.asarray(g_ref["embed"], np.float32)
+    res["grad_embed_pp"] = np.asarray(g_pp["embed"], np.float32)
+    put("params/", params)
+    put("batch/", batch)
+elif part == "pods":
+    # the pod-compressed train step on (pod 2, data 1, model 4), 3 steps
+    from repro.data.pipeline import SyntheticTokens, make_batch_fn
+    from repro.train import make_optimizer, make_train_step
+    from repro.train.optimizer import cosine_schedule
+    from repro.train.train_step import init_train_state
+    cfg = get_config("yi-9b").smoke().scaled(n_layers=2)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", cosine_schedule(1e-2, 2, 100))
+    mesh = jax.make_mesh((2, 1, 4), ("pod", "data", "model"))
+    batch_fn = make_batch_fn(SyntheticTokens(cfg.vocab_size, 16, 8, seed=R.MESH_BATCH_SEED))
+    state = init_train_state(model, opt, jax.random.key(0), compress_pods=True)
+    put("init/", {k: v for k, v in state.items() if k != "err"})
+    with mesh:
+        step = jax.jit(make_train_step(model, opt, mesh, compress_pods=True))
+        for t in range(3):
+            state, m = step(state, batch_fn(t))
+            put(f"state{t}/", {k: v for k, v in state.items() if k != "err"})
+            res[f"loss/{t}"] = np.float32(m["loss"])
+            res[f"grad_norm/{t}"] = np.float32(m["grad_norm"])
+            # each pod's residual: the shard its first device holds (every
+            # device of a pod holds the whole tree, out_specs=P() unchecked)
+            for kp, v in jax.tree_util.tree_flatten_with_path(state["err"])[0]:
+                name = "/".join(str(k.key) for k in kp)
+                shards = {s.device.id: np.asarray(s.data) for s in v.addressable_shards}
+                for pod, dev in ((0, 0), (1, 4)):
+                    assert shards[dev].shape == v.shape
+                    res[f"err{t}/{pod}/{name}"] = shards[dev]
+else:
+    raise SystemExit(f"unknown part {part}")
+np.savez(out / f"mesh_{part}.npz", **res)
+print("MESH-REF-OK")
+"""
+
+
+def mesh_reference(out_dir, part: str) -> dict:
+    """Run the reference's ``part`` ("ep": the MoE parity setup of
+    tests/test_distributed.py on a (data 2, model 4) mesh, layer 0's
+    ``moe_ffn`` alone on a seeded input, and ``build_step``'s spec trees
+    on that mesh as JSON; "pp": its PP parity setup on
+    (pod 2, data 2, model 2); "pods": three pod-compressed AdamW steps of
+    the yi-9b smoke model at 2 layers on (pod 2, data 1, model 4): the
+    state before (``init/``) and after each step (``state<step>/``, each
+    pod's residual tree as ``err<step>/<pod>/<leaf>``)) on 8
+    forced host devices, in a subprocess; returns its arrays by name."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.pathsep.join([str(here.parent / "src"), str(here)]))
+    proc = subprocess.run([sys.executable, "-c", _MESH_SCRIPT, str(out_dir), part],
+                          capture_output=True, text=True, env=env, timeout=600, check=False)
+    if proc.returncode != 0 or "MESH-REF-OK" not in proc.stdout:
+        raise RuntimeError(f"the reference's {part} run failed:\n{proc.stderr[-4000:]}")
+    z = np.load(Path(out_dir) / f"mesh_{part}.npz")
+    return {k: z[k] for k in z.files}

@@ -4,7 +4,8 @@ For each module the port has, the reference's ``__all__`` is compared
 with the port's (through ``_torch_parity``, which imports the
 reference).  A name the port lacks must be listed below as waiting, by
 the ROADMAP item that ports it; the port may export more (its launch
-counters, ``from_arrays``, device helpers).  The two hashing helpers
+counters, ``from_arrays``, device helpers).  A reference module with no
+counterpart is listed with the reason (``NO_COUNTERPART``).  The two hashing helpers
 that closed the gap are held against the reference at rtol 1e-6, and the
 data helpers by shape and value.
 """
@@ -35,13 +36,24 @@ PORTED = (
     "store.service",
     "configs", "data.pipeline", "models.ffn", "serve", "serve.engine", "serve.retrieval",
     "train", "train.train_step", "runtime", "runtime.fault_tolerance",
+    "sharding", "sharding.rules", "sharding.pp", "launch.mesh", "launch.steps",
 )
 # modules without ``__all__`` in the reference, whose imports are helpers:
 # the functions and classes they define
 DEFINED = (
     "models.attention", "models.transformer", "models.ssm", "models.registry",
-    "models.encdec", "models.vlm", "train.optimizer",
+    "models.encdec", "models.vlm", "train.optimizer", "train.grad_compression",
+    "launch.dryrun",
 )
+# reference modules with no counterpart in the port, and why
+NO_COUNTERPART = {
+    "compat": "a shim between JAX 0.4 and 0.6 for shard_map and make_mesh; the port "
+              "has no JAX, and its mesh is core.distributed.Mesh",
+    "launch.hlo_stats": "walks XLA's HLO text; launch.step_stats measures the same "
+                        "FLOPs and bytes on meta tensors, but GSPMD's automatic TP/FSDP "
+                        "collectives and XLA's temp bytes do not exist on the "
+                        "single-controller mesh",
+}
 
 
 @pytest.mark.parametrize("module", PORTED + DEFINED)
@@ -52,6 +64,14 @@ def test_port_exports_what_the_reference_exports(module):
     missing = ref_all - port_all
     assert missing == WAITING.get(module, set()), sorted(missing)
     assert all(hasattr(port, name) for name in port_all)
+
+
+@pytest.mark.parametrize("module", sorted(NO_COUNTERPART))
+def test_modules_without_counterpart(module):
+    assert R.ref_exports(module, defined=True)  # the reference has it
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module(f"repro_torch.{module}")
+    assert NO_COUNTERPART[module]
 
 
 # normal_sf is 0.5 * (1 - erf(x / sqrt 2)) in both packages: past x ~ 1 the

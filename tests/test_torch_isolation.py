@@ -159,6 +159,20 @@ with tempfile.TemporaryDirectory() as tmp:
     losses = train_main(["--arch", "minicpm-2b", "--device", "cpu", "--steps", "2",
                          "--batch", "2", "--seq", "8", "--ckpt", tmp + "/launch"])
     assert len(losses) == 2
+import repro_torch.sharding.pp, repro_torch.train.grad_compression
+from repro_torch.configs import SHAPES
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.step_stats import analyze, wire_bytes
+from repro_torch.launch.steps import build_step
+mesh = make_production_mesh(multi_pod=True, device="meta")
+cfg = get_config("yi-9b").smoke()
+fn, args, in_sh, out_sh, donate = build_step(build_model(cfg), SHAPES["train_4k"], mesh,
+                                             compress_pods=True, batch_override=64)
+assert analyze(fn, args, in_sh, out_sh, donate, wire=wire_bytes(
+    cfg, mesh, "train", args)).collective_breakdown["pod_int8"] > 0
+with tempfile.TemporaryDirectory() as tmp:
+    assert run_cell("yi-9b", "long_500k", False, out_dir=tmp)["status"] == "skipped"
 assert not any(launches.values()), launches
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, v in sys.modules.items() if v is not None)

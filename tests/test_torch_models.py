@@ -18,6 +18,7 @@ encoder-decoder and VLM families have files of their own
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -362,15 +363,39 @@ def test_moe_top_k_breaks_ties_to_the_lower_expert():
     assert i.tolist() == [[1, 2], [0, 1]] and torch.equal(w[:, 0], w[:, 1])
 
 
-def test_moe_expert_parallel_mesh_raises():
-    """The reference's shard_map branch has no counterpart on one device."""
+@pytest.mark.parametrize("dp", [1, 2])
+def test_moe_expert_parallel_mesh_raises(dp):
+    """The reference's shard_map branch on a (data dp, model 2) mesh: each
+    (data shard, rank) partial is the one-device path, (dp, tp) = (1, 1),
+    on the shard's rows, the rank's half of the experts and the ids
+    shifted to them, at the per-shard capacity; the output is the ranks'
+    sum in rank order, the shards in order.  Experts that do not split
+    over the 'model' axis raise."""
+    from repro_torch.core.distributed import make_mesh
     from repro_torch.models import ffn
 
-    mesh = type("M", (), {"shape": {"data": 1, "model": 2}})()
-    p = {n: torch.from_numpy(v) for n, v in _moe_weights(np.random.default_rng(0), 8, 8, 4,
+    E, k, D, F, Bx, Tx = 4, 2, 8, 16, 2, 6
+    p = {n: torch.from_numpy(v) for n, v in _moe_weights(np.random.default_rng(0), D, F, E,
                                                           "swiglu").items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP A17, item 7"):
-        ffn.moe_ffn(torch.zeros((1, 4, 8)), p, MoECfg(4, 2), mesh=mesh)
+    cfg = MoECfg(E, k, 0.75)  # a capacity that drops assignments
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((Bx, Tx, D)).astype(np.float32))
+    out, _ = ffn.moe_ffn(x, p, cfg, mesh=make_mesh((dp, 2), ("data", "model"),
+                                                   devices=[CPU] * (2 * dp)))
+    xf = x.reshape(-1, D)
+    w, ids = ffn._top_k(torch.softmax(xf @ p["router"], -1), k)
+    w = w / w.sum(-1, keepdim=True)
+    cap = max(4, math.ceil(Bx * Tx * k / dp / E * cfg.moe_capacity_factor))
+    half, m = E // 2, Bx * Tx // dp
+    want = []
+    for d in range(dp):
+        rows = slice(d * m, (d + 1) * m)
+        parts = [ffn._moe(xf[rows], ids[rows] - r * half, w[rows],
+                          *(p[n][r * half:(r + 1) * half] for n in ("w_up", "w_gate", "w_down")),
+                          capacity=cap) for r in range(2)]
+        want.append(parts[0] + parts[1])
+    assert torch.equal(out.reshape(-1, D), torch.cat(want))
+    with pytest.raises(ValueError, match="experts do not split"):
+        ffn.moe_ffn(x, p, cfg, mesh=make_mesh((1, 3), ("data", "model"), devices=[CPU] * 3))
 
 
 @pytest.mark.parametrize("T_prompt", [6, 12])

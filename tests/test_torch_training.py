@@ -421,14 +421,57 @@ def test_launch_train_main_on_cpu(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """Once refused, both options run: ``compress_pods`` on a mesh with a
+    'pod' axis (and raises without one), and ``state_shardings``, onto
+    which a supervised restart restores the state — elastically, on
+    another mesh than the one the run started on."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.runtime.fault_tolerance import state_tree
+    from repro_torch.sharding import rules
+
     cfg, model = _tiny_model()
     opt = make_optimizer("adamw")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         make_train_step(model, opt, compress_pods=True)
-    state = init_train_state(model, opt, torch.Generator().manual_seed(0), device=CPU)
-    sup = TrainSupervisor(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sup.run(state, make_train_step(model, opt), lambda s: None, 1, state_shardings=object())
+    pods = make_mesh((2, 1, 1), ("pod", "data", "model"), devices=[CPU] * 2)
+    step_fn = make_train_step(model, opt, pods, compress_pods=True)
+    batch_fn = make_batch_fn(SyntheticTokens(cfg.vocab_size, 8, 4))
+
+    def fresh():
+        return init_train_state(model, opt, torch.Generator().manual_seed(0), device=CPU,
+                                compress_pods=True, mesh=pods)
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[CPU] * 4)
+    state = fresh()
+    shardings = rules.named(mesh, rules.state_specs(
+        state, rules.param_specs(state["params"], mesh, fsdp_min_size=1), mesh))
+    want = TrainSupervisor(str(tmp_path / "a"), ckpt_every=2).run(fresh(), step_fn, batch_fn, 4)
+
+    def failure_hook(step, fired=[]):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise RuntimeError("node lost")
+
+    sup = TrainSupervisor(str(tmp_path / "b"), ckpt_every=2)
+    got = sup.run(fresh(), step_fn, batch_fn, 4, failure_hook=failure_hook,
+                  state_shardings=shardings)
+    assert sup.restarts == 1 and int(got["step"]) == 4
+    a, b = state_tree(want), state_tree(got)
+    for path in ("params", "err"):
+        for x, y in zip(_tensors(a[path]), _tensors(b[path])):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="more entries"):  # a spec the step scalar refuses
+        TrainSupervisor(str(tmp_path / "b")).run(
+            fresh(), step_fn, batch_fn, 5,
+            state_shardings=rules.NamedSharding(mesh, rules.P("data")))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    else:
+        yield tree
 
 
 def test_no_train_state_under_inference_mode():

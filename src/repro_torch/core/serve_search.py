@@ -39,10 +39,10 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import kernels
 from ..device import as_tensor, full_fp32, resolve_device, upload
+from ..obs.trace import get_tracer
 from .index import DBLSHIndex
 from ..kernels.ref import pool_d2, slot_d2, take_fill
 from .query import first_of_group, lexsort, merge_dedup_topk
@@ -382,15 +382,17 @@ def search_batch_fixed(
     Qn = Q.shape[0]
     dev = Q.device
 
-    # profiler spans named as the reference's named_scopes: a trace of
-    # the device time lines up with the four stages by name
-    with record_function("dblsh.project"), full_fp32():
+    # the four stages, named as the reference's named_scopes: spans on the
+    # tracer's search lane, and profiler ranges under a session, so a
+    # trace of the device time lines up with them by name
+    tr = get_tracer()
+    with tr.stage("dblsh.project"), full_fp32():
         G = torch.einsum("lkd,qd->qlk", index.proj_vecs, Q).contiguous()  # (Qn, L, K)
 
     radii, halves = _schedule(p, r0, steps)
 
     # select once, at the final radius (windows nest)
-    with record_function("dblsh.select"):
+    with tr.stage("dblsh.select"):
         blk, bhw = _select_blocks(index, G, float(np.float32(p.w0) * radii[-1]))  # (L, Qn, M)
         offs = (torch.arange(L, dtype=torch.int32, device=dev) * nb)[:, None, None]
         blk_q = torch.where(blk < nb, blk + offs, L * nb).transpose(0, 1)
@@ -406,7 +408,7 @@ def search_batch_fixed(
         # staged through pinned memory: a pageable copy would make the
         # host wait for the card here, and the search must not wait
         halves_t = upload(np.array(halves, np.float32), dev)
-    with record_function("dblsh.verify"):
+    with tr.stage("dblsh.verify"):
         if use_bins:
             bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,
                                                   exact, dtype, ks)
@@ -445,13 +447,17 @@ def search_batch_fixed(
         done = done | fired
 
     prev_half = -np.inf
-    with record_function("dblsh.merge"):
+    with tr.stage("dblsh.merge") as merge_span:
+        ran = syncs = 0  # steps merged, host syncs made (counted, not waited on)
         for j in range(steps):
             # early exit: stop once every query is done.  Reading the mask
             # is one host sync per step; done queries are frozen, so the
             # exit never changes a result
-            if early_exit and j > 0 and bool(done.all()):
-                break
+            if early_exit and j > 0:
+                syncs += 1
+                if bool(done.all()):
+                    break
+            ran += 1
             half = float(halves[j])
             if with_stats:
                 active = ~done
@@ -481,6 +487,8 @@ def search_batch_fixed(
                     n_adm = ((hw <= half) & torch.isfinite(d2)).sum(dim=1)
                 mark(n_adm >= c1_thr, TERM_C1, radii[j])
             prev_half = half
+        if merge_span:
+            merge_span.set(steps=ran, syncs=syncs)
 
     out = (torch.sqrt(best_d), best_i)
     if with_stats:
@@ -574,7 +582,8 @@ def search_batch_fixed_ref(
     dev = Q.device
 
     # the one-pass search's span names, so one trace reads both paths
-    with record_function("dblsh.project"), full_fp32():
+    tr = get_tracer()
+    with tr.stage("dblsh.project"), full_fp32():
         G = torch.einsum("lkd,qd->qlk", index.proj_vecs, Q)  # (Qn, L, K)
     best_d = torch.full((Qn, k), torch.inf, device=dev)
     best_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
@@ -585,7 +594,7 @@ def search_batch_fixed_ref(
     radii, _ = _schedule(p, r0, steps)
     for r in radii:
         w = np.float32(p.w0) * r
-        with record_function("dblsh.select"):
+        with tr.stage("dblsh.select"):
             blk, _ = _select_blocks(index, G, float(w))  # (L, Qn, M)
         if with_stats:
             active = ~done
@@ -596,14 +605,14 @@ def search_batch_fixed_ref(
         step_d = torch.full((Qn, k), torch.inf, device=dev)
         step_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
         for li in range(p.L):
-            with record_function("dblsh.verify"):
+            with tr.stage("dblsh.verify"):
                 d_l, i_l = _verify_table(index, li, blk[li].contiguous(),
                                          G[:, li].contiguous(), Q, float(w), engine, k)
-            with record_function("dblsh.merge"):
+            with tr.stage("dblsh.merge"):
                 step_d, step_i = _merge_dedup_topk_lexsort(step_d, step_i, d_l, i_l, n, k)
 
         # masked merge: finished queries keep their result
-        with record_function("dblsh.merge"):
+        with tr.stage("dblsh.merge"):
             nd, ni = _merge_dedup_topk_lexsort(best_d, best_i, step_d, step_i, n, k)
             best_d = torch.where(done[:, None], best_d, nd)
             best_i = torch.where(done[:, None], best_i, ni)

@@ -10,33 +10,53 @@ Design constraints (DESIGN.md §10):
 
 * **Cheap when off.**  The tracer is disabled by default; every hot-path
   call site guards on ``tracer.enabled`` (one attribute read) or goes
-  through :meth:`Tracer.add_span`, which returns immediately when
-  disabled.  Enabling must not change results — spans only *observe*
-  timestamps the scheduler already reads from its injectable clock.
+  through :meth:`Tracer.add_span` / :meth:`Tracer.stage`, which return
+  at once when disabled (``stage`` hands back one shared no-op context
+  manager, so the off path allocates nothing).  Enabling must not change
+  results — spans only *observe* timestamps the scheduler already reads
+  from its injectable clock.
+* **One mechanism for both traces.**  :meth:`Tracer.span` and
+  :meth:`Tracer.stage` open a ``torch.profiler.record_function`` range
+  when, and only when, a ``torch.profiler`` session is active on the
+  calling thread, and record a :class:`Span` when the tracer is enabled.
+  So the lifecycle mutations and the search stages show in a device
+  trace by name, and an operator without a profiler still sees where a
+  call's time went.
 * **Two-phase spans.**  The scheduler's overlapped dispatch means spans
   do not nest lexically (batch N+1 is issued while batch N is still
   pending), so the recorder accepts explicit ``(t_start, t_end)``
-  intervals (:meth:`add_span`) next to the context-manager form
-  (:meth:`span`) used by synchronous work like lifecycle mutations.
+  intervals (:meth:`add_span`) next to the context-manager forms used by
+  synchronous work like lifecycle mutations and a batch search.
 * **Lanes.**  Each span carries a ``tid`` (track id).  The scheduler
   puts its own host work on :data:`TID_SCHEDULER` and each in-flight
   batch on ``TID_RING0 + ring-slot``, so a Perfetto render shows the
   overlap directly: the issue span of batch N+1 sits inside the pending
-  window of batch N, one lane up.
+  window of batch N, one lane up.  Lifecycle mutations use
+  :data:`TID_LIFECYCLE`; a ``Collection.search`` call and its four
+  stages use :data:`TID_SEARCH`: ``store.search`` (args ``collection``,
+  ``rows``, ``k``, ``steps``, ``engine``, ``dtype``) is the parent of
+  ``dblsh.project``, ``dblsh.select``, ``dblsh.verify`` and
+  ``dblsh.merge`` (args ``steps`` run and the host ``syncs`` early exit
+  made, 0 without it).
 * **Bounded.**  The event buffer is a ring (``maxlen``); a long-lived
   serving process can leave tracing on without growing memory.
 
+Clocks: a span's start and duration are read from the tracer's clock
+(``time.monotonic`` unless a test injects another), so durations never
+jump.  A ``torch.profiler`` trace stamps its events on another base, the
+Unix epoch in nanoseconds.  The tracer keeps an anchor, a reading of
+both clocks taken when it is built and again each time it is enabled,
+and :meth:`Tracer.to_trace_ns` maps a time of its clock onto the
+profiler's base.  The mapping is applied when spans are exported or
+read, never when they are recorded.
+
 Exports: :meth:`Tracer.export_jsonl` (one span per line, the full
-record) and :meth:`Tracer.export_perfetto` (Chrome ``trace_event``
-JSON — load in ``ui.perfetto.dev`` or ``chrome://tracing``).  Request
+record) and :meth:`Tracer.export_perfetto` (Chrome ``trace_event`` JSON, starts on
+the profiler's base — load it in ``ui.perfetto.dev`` or
+``chrome://tracing`` beside a ``torch.profiler`` chrome trace).  Request
 spans (``cat == "request"``) export as *async* event pairs so hundreds
 of concurrently-queued requests render as overlapping slices instead of
 fighting over one track.
-
-Device correlation: the search stages run inside
-``torch.profiler.record_function`` ranges (``dblsh.project``,
-``dblsh.select``, ``dblsh.verify``, ``dblsh.merge``), so a
-``torch.profiler`` device trace lines up with these host spans by name.
 """
 
 from __future__ import annotations
@@ -44,7 +64,9 @@ from __future__ import annotations
 import json
 import time
 from collections import deque
-from contextlib import contextmanager
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 __all__ = [
     "Span",
@@ -53,6 +75,7 @@ __all__ = [
     "TID_SCHEDULER",
     "TID_RING0",
     "TID_LIFECYCLE",
+    "TID_SEARCH",
 ]
 
 # Track (lane) assignment for the Perfetto timeline.  Ring lanes are
@@ -60,10 +83,12 @@ __all__ = [
 TID_SCHEDULER = 0
 TID_RING0 = 1
 TID_LIFECYCLE = 64
+TID_SEARCH = 65
 
 _TRACK_NAMES = {
     TID_SCHEDULER: "scheduler (host)",
     TID_LIFECYCLE: "lifecycle",
+    TID_SEARCH: "search (host)",
 }
 
 
@@ -100,29 +125,77 @@ class Span:
 
 
 class _NopSpan:
-    """Handle yielded by ``span()`` when tracing is off."""
+    """Handle yielded by a span when tracing is off: false, so a caller
+    can skip building args nothing would record (``if sp: sp.set(...)``)."""
 
     __slots__ = ()
 
     def set(self, **kw) -> None:
         pass
 
+    def __bool__(self) -> bool:
+        return False
+
+    def __enter__(self) -> "_NopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
 
 _NOP = _NopSpan()
 
 
-class _LiveSpan:
-    """Handle yielded by ``span()`` while the interval is open; ``set``
-    attaches args discovered mid-span (e.g. how many rows a compaction
-    actually moved)."""
+class _Scope:
+    """One open span of :meth:`Tracer.span` / :meth:`Tracer.stage`, and
+    the handle ``with`` yields: it holds the profiler's range when a
+    session was active at its opening and records a :class:`Span` when
+    the tracer was enabled then.  ``set`` attaches args discovered
+    mid-span (e.g. how many rows a compaction actually moved); the
+    handle is true only when it records."""
 
-    __slots__ = ("args",)
+    __slots__ = ("tracer", "name", "cat", "tid", "args", "traced", "range",
+                 "sid", "parent", "t0")
 
-    def __init__(self, args: dict):
-        self.args = args
+    def __init__(self, tracer, name, cat, tid, traced, profiled):
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.tid = tid
+        self.args = {}
+        self.traced = traced
+        self.range = record_function(name) if profiled else None
+
+    def __enter__(self) -> "_Scope":
+        # the clock is read before the profiler's range opens: the range
+        # stamps its start part-way through an opening that takes
+        # microseconds, so the span's start lies closest to it this way
+        if self.traced:
+            tr = self.tracer
+            self.sid = tr._next_sid()
+            self.parent = tr._stack[-1] if tr._stack else None
+            tr._stack.append(self.sid)
+            self.t0 = tr.clock()
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.traced:
+            tr = self.tracer
+            t1 = tr.clock()
+            tr._stack.pop()
+            tr.events.append(Span(self.name, self.cat, self.t0, t1 - self.t0,
+                                  self.tid, self.sid, self.parent, self.args))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
 
     def set(self, **kw) -> None:
         self.args.update(kw)
+
+    def __bool__(self) -> bool:
+        return self.traced
 
 
 class Tracer:
@@ -144,12 +217,14 @@ class Tracer:
         self._sid = 0
         self._stack: list[int] = []      # open context-manager span ids
         self._sample_acc = 0.0
+        self._anchor = self._read_anchor()
 
     # ------------------------------------------------------------- control
     def enable(self, sample_rate: float | None = None) -> "Tracer":
         self.enabled = True
         if sample_rate is not None:
             self.sample_rate = float(sample_rate)
+        self._anchor = self._read_anchor()
         return self
 
     def disable(self) -> "Tracer":
@@ -202,28 +277,52 @@ class Tracer:
             name, cat, ts, 0.0, tid, self._next_sid(), None, args, ph="i",
         ))
 
-    @contextmanager
     def span(self, name: str, *, cat: str = "host",
              tid: int = TID_LIFECYCLE, **args):
         """Context-managed span for synchronous work (lifecycle
-        mutations, benchmark phases).  Nesting is tracked: the recorded
-        span carries the enclosing span's id as ``parent``."""
-        if not self.enabled:
-            yield _NOP
-            return
-        sid = self._next_sid()
-        parent = self._stack[-1] if self._stack else None
-        self._stack.append(sid)
-        live = _LiveSpan(dict(args))
-        t0 = self.clock()
-        try:
-            yield live
-        finally:
-            t1 = self.clock()
-            self._stack.pop()
-            self.events.append(
-                Span(name, cat, t0, t1 - t0, tid, sid, parent, live.args)
-            )
+        mutations, benchmark phases): :meth:`stage` with args given at
+        opening.  Nesting is tracked: the recorded span carries the
+        enclosing span's id as ``parent``."""
+        sp = self.stage(name, cat, tid)
+        if sp:
+            sp.args.update(args)
+        return sp
+
+    def stage(self, name: str, cat: str = "search", tid: int = TID_SEARCH):
+        """A span that opens a ``record_function(name)`` range under an
+        active ``torch.profiler`` session, so the work shows on the device
+        trace, and records a :class:`Span` while the tracer is enabled.
+        For the hot path: args are attached through the handle, behind
+        ``if sp:``; with tracing and the profiler both off it costs an
+        attribute read, one call and the shared no-op context manager,
+        allocating nothing."""
+        profiled = _profiler_enabled()
+        if not (self.enabled or profiled):
+            return _NOP
+        return _Scope(self, name, cat, tid, self.enabled, profiled)
+
+    # --------------------------------------------------------------- clocks
+    def _read_anchor(self) -> tuple[float, int]:
+        """(a reading of the tracer's clock, the Unix epoch in ns at that
+        moment): of five back-to-back readings, the one whose two clock
+        reads lie closest together, the epoch taken between them."""
+        best = None
+        for _ in range(5):
+            a = self.clock()
+            wall = time.time_ns()
+            b = self.clock()
+            if best is None or b - a < best[0]:
+                best = (b - a, 0.5 * (a + b), wall)
+        return best[1], best[2]
+
+    def to_trace_ns(self, t: float) -> int:
+        """A time ``t`` of the tracer's clock (seconds) on the
+        ``torch.profiler`` time base: nanoseconds of the Unix epoch, the
+        base of a kineto event's ``start_ns()`` and of a chrome trace's
+        ``ts`` (there in microseconds).  Exact up to the anchor's reading,
+        a microsecond or so, while neither clock is stepped."""
+        t_anchor, wall = self._anchor
+        return wall + round((t - t_anchor) * 1e9)
 
     # ------------------------------------------------------------- exports
     def export_jsonl(self, path: str) -> int:
@@ -236,7 +335,8 @@ class Tracer:
         return len(events)
 
     def to_trace_events(self) -> list[dict]:
-        """Chrome ``trace_event`` records (ts/dur in microseconds).
+        """Chrome ``trace_event`` records (ts/dur in microseconds, starts
+        on the profiler's base: :meth:`to_trace_ns`).
         ``cat == "request"`` spans become async begin/end pairs keyed on
         the span id (or ``args["uid"]`` when present) so overlapping
         queued requests render side by side; instants become ``ph: "i"``;
@@ -257,7 +357,7 @@ class Tracer:
                 "args": {"name": f"ring slot {tid - TID_RING0}"},
             })
         for s in sorted(self.events, key=lambda x: x.ts):
-            ts_us = s.ts * 1e6
+            ts_us = self.to_trace_ns(s.ts) / 1e3
             base = {"name": s.name, "cat": s.cat, "pid": 0, "tid": s.tid,
                     "args": s.args}
             if s.ph == "i":

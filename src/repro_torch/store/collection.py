@@ -42,6 +42,7 @@ from ..core import DBLSHParams, build, from_arrays, search_batch_fixed, validate
 from ..core import updates as _updates
 from ..core.index import DBLSHIndex
 from ..device import as_tensor, resolve_device
+from ..obs.trace import get_tracer
 from ..tune import planner as _planner
 from .lifecycle import (
     _INDEX_ARRAY_FIELDS,
@@ -212,15 +213,23 @@ class Collection(CollectionLifecycle):
         the quantized paths need an index built with the matching
         ``quant_dtype`` and are a shortlist + exact fp32 re-rank, so the
         returned distances are always exact fp32.
+
+        The call is a ``store.search`` span on the process tracer's search
+        lane (and a profiler range under a session), the parent of the
+        four ``dblsh.*`` stage spans.
         """
-        Q = torch.atleast_2d(as_tensor(Q, self.device))
-        self._count_queries(Q, rows)
-        return search_batch_fixed(
-            self.index, Q, k=k, r0=r0, steps=steps,
-            engine=engine or self.default_engine or "torch",
-            with_stats=with_stats, exact=exact, termination=termination,
-            with_explain=with_explain, dtype=dtype, device=self.device,
-        )
+        engine = engine or self.default_engine or "torch"
+        with get_tracer().stage("store.search") as sp:
+            Q = torch.atleast_2d(as_tensor(Q, self.device))
+            if sp:
+                sp.set(collection=self.name, rows=Q.shape[0] if rows is None else int(rows),
+                       k=k or self.index.params.k, steps=steps, engine=engine, dtype=dtype)
+            self._count_queries(Q, rows)
+            return search_batch_fixed(
+                self.index, Q, k=k, r0=r0, steps=steps, engine=engine,
+                with_stats=with_stats, exact=exact, termination=termination,
+                with_explain=with_explain, dtype=dtype, device=self.device,
+            )
 
     # ------------------------------------------------------------ persistence
     def _snapshot_arrays(self) -> dict:

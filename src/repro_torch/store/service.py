@@ -77,7 +77,6 @@ kernels' wrappers run their plain twins.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import math
@@ -1172,37 +1171,35 @@ class StoreService:
                 faults.fire("dispatch.delay_ms", collection=name,
                             scale=plan.steps)
                 faults.fire("dispatch.raise", collection=name, engine=engine)
-                with (torch.profiler.record_function(f"store.dispatch.{name}")
-                      if traced else contextlib.nullcontext()):
-                    Q = upload(Qh, torch.device(device)) if on_card else Qnp
-                    out = col.search(
-                        Q, k=self.default_k, r0=plan.r0, steps=plan.steps,
-                        engine=engine, with_stats=True,
-                        rows=m,  # only m of `shape` rows are real queries
-                        **term_kw, **explain_kw,
-                    )
-                    if with_explain:
-                        dists, ids, stats, explain_arrays = out
-                    else:
-                        dists, ids, stats = out
-                    payload = None
-                    if getattr(col, "payload", None) is not None:
-                        # gathered on the card, same stream
-                        payload = _to_host(col.get_payload(ids[:m]))
-                    # the results' copies to the host, queued behind the
-                    # search on its stream, then the event that marks them
-                    event = None
-                    if isinstance(dists, torch.Tensor) and dists.is_cuda:
-                        event = torch.cuda.Event()
-                    pending = PendingSearch(
-                        _to_host(dists), _to_host(ids),
-                        {k2: _to_host(v) for k2, v in stats.items()},
-                        None if explain_arrays is None
-                        else {k2: _to_host(v) for k2, v in explain_arrays.items()},
-                        event=event,
-                    )
-                    if event is not None:
-                        event.record(torch.cuda.current_stream(dists.device))
+                Q = upload(Qh, torch.device(device)) if on_card else Qnp
+                out = col.search(
+                    Q, k=self.default_k, r0=plan.r0, steps=plan.steps,
+                    engine=engine, with_stats=True,
+                    rows=m,  # only m of `shape` rows are real queries
+                    **term_kw, **explain_kw,
+                )
+                if with_explain:
+                    dists, ids, stats, explain_arrays = out
+                else:
+                    dists, ids, stats = out
+                payload = None
+                if getattr(col, "payload", None) is not None:
+                    # gathered on the card, same stream
+                    payload = _to_host(col.get_payload(ids[:m]))
+                # the results' copies to the host, queued behind the
+                # search on its stream, then the event that marks them
+                event = None
+                if isinstance(dists, torch.Tensor) and dists.is_cuda:
+                    event = torch.cuda.Event()
+                pending = PendingSearch(
+                    _to_host(dists), _to_host(ids),
+                    {k2: _to_host(v) for k2, v in stats.items()},
+                    None if explain_arrays is None
+                    else {k2: _to_host(v) for k2, v in explain_arrays.items()},
+                    event=event,
+                )
+                if event is not None:
+                    event.record(torch.cuda.current_stream(dists.device))
                 break
             except Exception as e:
                 attempts += 1

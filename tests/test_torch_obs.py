@@ -38,7 +38,13 @@ from repro_torch.obs import (  # noqa: E402
     expected_step_pmf,
     get_tracer,
 )
-from repro_torch.obs.trace import TID_LIFECYCLE, TID_RING0, TID_SCHEDULER  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.obs.trace import (  # noqa: E402
+    TID_LIFECYCLE,
+    TID_RING0,
+    TID_SCHEDULER,
+    TID_SEARCH,
+)
 from repro_torch.store import (  # noqa: E402
     Collection,
     DeadlineExceeded,
@@ -277,8 +283,9 @@ class TestExports:
         assert len(pairs) == 4
         b1 = next(e for e in pairs if e["ph"] == "b" and e["id"] == "1")
         e1 = next(e for e in pairs if e["ph"] == "e" and e["id"] == "1")
-        assert b1["ts"] == pytest.approx(0.0)
-        assert e1["ts"] == pytest.approx(2.0 * 1e6)  # µs
+        # starts on the profiler's base (µs of the Unix epoch)
+        assert b1["ts"] == pytest.approx(tr.to_trace_ns(0.0) / 1e3, abs=1.0)
+        assert e1["ts"] - b1["ts"] == pytest.approx(2.0 * 1e6, abs=1.0)  # µs
         # the batch span is a complete X slice with µs duration
         x = next(e for e in ev if e["ph"] == "X")
 
@@ -608,13 +615,22 @@ class TestServiceIntegration:
 
 
 # ---------------------------------------------------------------- bit-equality
-@pytest.mark.parametrize("engine", ENGINES)
-def test_obs_on_off_bit_equal(setup, col, engine):
+@pytest.mark.parametrize(
+    "path,engine",
+    [pytest.param("service", e, id=e) for e in ENGINES]
+    + [pytest.param("batch", e, id=f"batch-{e}") for e in ENGINES],
+)
+def test_obs_on_off_bit_equal(setup, col, path, engine):
     """The whole observability stack enabled (tracing, sampling 1.0)
-    must not change a single output bit vs obs-off, per engine."""
+    must not change a single output bit vs obs-off, per engine: through
+    the service, and through ``Collection.search`` with the process
+    tracer recording its search spans."""
     _, queries, _ = setup
 
     def run(obs):
+        if path == "batch":
+            d, i = col.search(queries[:8], k=8, steps=4, engine=engine)
+            return d.numpy(), i.numpy()
         svc = StoreService(
             batch_shapes=(1, 4, 8), default_k=8, steps=4, engine=engine,
             inflight_depth=2, obs=obs,
@@ -624,11 +640,134 @@ def test_obs_on_off_bit_equal(setup, col, engine):
         return np.asarray(d), np.asarray(i)
 
     d_off, i_off = run(None)
-    obs = Observability(tracer=Tracer(enabled=True))
+    obs = Observability(tracer=get_tracer() if path == "batch" else Tracer(),
+                        trace=True)
     d_on, i_on = run(obs)
     assert obs.tracer.events  # it really traced
     np.testing.assert_array_equal(d_off, d_on)
     np.testing.assert_array_equal(i_off, i_on)
+
+
+# ------------------------------------------------------------- search spans
+STAGES = ("dblsh.project", "dblsh.select", "dblsh.verify", "dblsh.merge")
+
+
+def test_collection_search_records_its_spans(setup, col):
+    """One ``Collection.search`` with the process tracer enabled: one
+    ``store.search`` span on the search lane with the call's args, the
+    parent of the four stage spans; the merge's span carries the steps it
+    ran and the host syncs early exit made."""
+    _, queries, _ = setup
+    tr = get_tracer()
+    col.search(queries[:5], k=8, steps=4, engine="inline")
+    assert not tr.events  # disabled: nothing recorded
+    tr.enable()
+    col.search(queries[:5], k=8, steps=4, engine="inline", rows=3)
+    (call,) = [s for s in tr.events if s.name == "store.search"]
+    assert call.tid == TID_SEARCH and call.parent is None
+    assert call.args == {"collection": "obscol", "rows": 3, "k": 8, "steps": 4,
+                         "engine": "inline", "dtype": "fp32"}
+    stages = [s for s in tr.events if s.name != "store.search"]
+    assert [s.name for s in stages] == list(STAGES)
+    assert all(s.parent == call.sid and s.tid == TID_SEARCH for s in stages)
+    assert all(call.ts <= s.ts and s.ts + s.dur <= call.ts + call.dur
+               for s in stages)
+    assert stages[-1].args == {"steps": 4, "syncs": 0}
+    tr.clear()
+    col.search(queries[:5], k=0, steps=6, engine="torch",
+               termination=Termination(use_c1=False, c1_budget=0))
+    merge = next(s for s in tr.events if s.name == "dblsh.merge")
+    call = next(s for s in tr.events if s.name == "store.search")
+    assert call.args["k"] == col.index.params.k
+    assert 1 <= merge.args["steps"] <= 6
+    # a sync before every step but the first, until the exit
+    assert merge.args["syncs"] == min(merge.args["steps"], 5)
+
+
+class _CountedRange:
+    """Stands in for ``record_function``: counts the ranges opened."""
+
+    opened = 0
+
+    def __init__(self, name):
+        type(self).opened += 1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_search_off_path_opens_no_range_and_records_nothing(
+        setup, col, monkeypatch):
+    """Tracer and profiler both off: ``search_batch_fixed`` opens no
+    profiler range, records no span and every stage gets the one shared
+    no-op handle; with the tracer on and no profiler, still no range."""
+    _, queries, _ = setup
+    monkeypatch.setattr(obs_trace, "record_function", _CountedRange)
+    _CountedRange.opened = 0
+    tr = get_tracer()
+    assert tr.stage("dblsh.merge") is tr.stage("dblsh.select") is obs_trace._NOP
+    search_batch_fixed(col.index, queries[:4], k=8, steps=4, device="cpu")
+    assert _CountedRange.opened == 0 and not tr.events
+    tr.enable()
+    search_batch_fixed(col.index, queries[:4], k=8, steps=4, device="cpu")
+    assert _CountedRange.opened == 0
+    assert [s.name for s in tr.events] == list(STAGES)
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        out.setdefault(ev.name(), []).append(ev.start_ns())
+    return out
+
+
+def test_stage_spans_land_on_the_profilers_clock(setup, col):
+    """Under a CPU profiler session each span opens a range of its name,
+    and its start, mapped by ``to_trace_ns``, lies within 1 ms of the
+    profiler's event; with no session the profiler's next trace holds
+    none of them."""
+    _, queries, _ = setup
+    tr = get_tracer()
+    # a first session pays the ranges' one-time set-up, which is not the
+    # mapping's error
+    _profiled(lambda: col.search(queries[:6], k=8, steps=4, engine="inline"))
+    tr.enable()
+    events = _profiled(lambda: [col.search(queries[:6], k=8, steps=4,
+                                           engine="inline") for _ in range(3)])
+    tr.disable()
+    spans = [s for s in tr.events if s.name in STAGES + ("store.search",)]
+    assert len(spans) == 15
+    for name in STAGES + ("store.search",):
+        mine = sorted(tr.to_trace_ns(s.ts) for s in spans if s.name == name)
+        theirs = sorted(events[name])
+        assert len(theirs) == 3
+        assert max(abs(a - b) for a, b in zip(mine, theirs)) < 1_000_000
+    tr.enable()
+    col.search(queries[:6], k=8, steps=4, engine="inline")
+    later = _profiled(lambda: None)
+    assert not set(later) & set(STAGES + ("store.search",))
+
+
+def test_lifecycle_mutation_opens_a_profiler_range():
+    """``Tracer.span`` carries the lifecycle spans onto a profiler trace:
+    an insert under a session shows a ``lifecycle.add`` range, with the
+    tracer off as on."""
+    data, _, _ = R.resilience_fixture()
+    params = DBLSHParams.derive(
+        n=120, d=12, c=1.5, w0=3.6, t=12, k=8, inline_vectors=True
+    )
+    c2 = Collection.create("mut", torch.Generator().manual_seed(5), data[:120],
+                           params=params, device="cpu")
+    events = _profiled(lambda: c2.add(data[120:124] + 0.5))
+    assert len(events["lifecycle.add"]) == 1
+    assert not get_tracer().events
 
 
 # --------------------------------------------------------- explain / exemplars

@@ -35,7 +35,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  n = 1,000,000, d = 64, K = 10, L = 5, B = 64, M = 5, 64
                  queries, steps = 8, r0 = 0.5) through the one-pass
                  ``search_batch_fixed`` with engines torch, kernel and
-                 inline; checks that B1/B2 ran, that the kernel engines
+                 inline; checks that B1/B2 ran and S1 once a search (every
+                 engine selects through it), that the kernel engines
                  return the torch engine's id sets (all of them with
                  exact=True; in norm form, a query may differ only where
                  every differing id lies within the norm-scaled atol of its
@@ -44,7 +45,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  twin on the inputs the main path gave it;
 4. multipass   — the same workload through the multi-pass oracle
                  ``search_batch_fixed_ref``, all three engines: B6 (inline)
-                 and B7 (kernel) launch L·steps = 40 times per search,
+                 and B7 (kernel) launch L·steps = 40 times per search, S1
+                 once a step on every engine,
                  recall@10 >= 0.5, the kernel engines' id sets equal the
                  torch engine's up to near-ties at the k-th distance, stats
                  equal across engines, and B6/B7 against their twins on the
@@ -102,7 +104,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  beside the least time the card could take (every
                  kernel at both batches; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
-                 ratios); median wall times
+                 ratios); S1 at the benchmark cells' shapes, bit-equal to
+                 its twin, beside the eager stage it replaced; median wall times
                  of the one-pass search, the
                  multi-pass search, the one-pass search under
                  Termination() and the quantized searches, per engine, at
@@ -219,10 +222,14 @@ Phases, each printing a line (with its seconds) when it passes:
                  (prompts of 32-128 tokens, 32 new tokens, half greedy, half
                  at temperature 0.8 / top-k 40) served on 4 slots without
                  retrieval and through each datastore, every one finished
-                 with its 32 tokens, B2 / B1 launched on their runs and no
-                 kernel on torch's; two greedy requests decoded alone equal
-                 the shared batch up to a near-tie; B1/B2 held against their
-                 twins on this path's inputs (d = 4096, Q = 4). Reported:
+                 with its 32 tokens, B2 / B1 launched on their runs, S1 on
+                 every datastore's and no other kernel on torch's; two greedy
+                 requests decoded alone equal the shared batch up to a
+                 near-tie; B1/B2 held against their twins on this path's
+                 inputs (d = 4096, Q = 4), and S1 against its twin on the
+                 datastore search's own inputs (K = 3077: equal block sets
+                 and halfwidths away from near-ties of the M-th MINDIST).
+                 Reported:
                  recall@8 and the overall ratio of the datastore, decode step
                  ms p50/p99, tokens/s and the retrieval share per run, the
                  kernels' times at this shape, the per-layer weight cast's
@@ -382,6 +389,7 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/pairwise_l2.py:25"),
 }
 FUSED = ("fused_window_search", "fused_cand_search")
+LM_COUNTED = (*FUSED, "select_blocks")  # the kNN-LM phases' launch counts
 VERIFY = ("window_verify", "candidate_verify")
 POOL = ("window_dist", "candidate_dist")  # B4, B5: the pool engines of _gather_pool
 NORM_ATOL = 4e-6  # x (max ||x||^2 + max ||q||^2): the norm form's cancellation
@@ -992,6 +1000,99 @@ def host_us(torch, fn, calls: int = 50, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+SELECT_SHAPES = {  # S1 at the benchmark cells' shapes: (Q, L, nb, K), M
+    "sift10m": ((256, 5, 156_250, 10), 5),
+    "gist1m": ((1024, 5, 15_625, 10), 5),
+}
+SELECT_SOURCE = "src/repro_torch/kernels/csrc/select.cu"
+SELECT_REPLACES = "none (the JAX package's jnp + lax.top_k, src/repro/core/serve_search.py:161)"
+
+
+def select_bound(L, Q, nb, K, M) -> tuple[float, str, int, int]:
+    """S1's least time (ms), what bounds it, and its bytes and operations:
+    ~8 fp32 operations a (query, table, block, dimension) at the float32
+    peak, or the MBRs, projections and lists read once, the larger."""
+    ops, nbytes = 8 * Q * L * nb * K, 2 * L * nb * K * 4 + Q * L * K * 4 + L * Q * M * 8
+    ops_ms, bytes_ms = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops
+
+
+def select_times(torch, np, kernels, ref, records: list, launched: int) -> None:
+    """Kernel S1 at the benchmark cells' shapes on random boxes and
+    projections (~20 overlapping blocks a table and query): bit-equal to
+    its twin on the card, then its times beside the twin's (the eager
+    selection it replaced) and its bound.  Appends one record a shape;
+    ``launched`` is S1's launches on the main path (phase 3)."""
+    dev = torch.device("cuda")
+    for tag, ((Q, L, nb, K), M) in SELECT_SHAPES.items():
+        rng = np.random.default_rng(Q + nb)
+        c, e = rng.uniform(-1, 1, (L, nb, K)), rng.uniform(0, 0.3, (L, nb, K))
+        p = min(1.0, 20.0 / nb) ** (1.0 / K)
+        half = float(np.float32(2.0 * (1.0 - np.sqrt(1.0 - p)) - 0.15))
+        lo, hi, g = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                     for x in (c - e, c + e, rng.uniform(-1, 1, (Q, L, K))))
+        args, kw = (lo, hi, g, half), dict(M=M)
+        before = kernels.launches["select_blocks"]
+        got = kernels.select_blocks(*args, **kw)
+        want = ref.select_blocks_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(kernels.launches["select_blocks"] == before + 1, f"S1@{tag}: launch not counted")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"S1@{tag}: differs from its twin")
+        overlap = float((got[0] < nb).float().mean())
+        ms = cuda_ms(torch, lambda: kernels.select_blocks(*args, **kw), iters=50)
+        plain_ms = cuda_ms(torch, lambda: ref.select_blocks_ref(*args, **kw), iters=5)
+        dev_us = fleet_profile_ms(torch, lambda: kernels.select_blocks(*args, **kw)) * 1e3
+        twin_us = fleet_profile_ms(torch, lambda: ref.select_blocks_ref(*args, **kw)) * 1e3
+        hus = host_us(torch, lambda: kernels.select_blocks(*args, **kw))
+        bound_ms, bound_by, nbytes, ops = select_bound(L, Q, nb, K, M)
+        records.append({
+            "name": f"select_blocks@{tag}", "route": "cuda", "source": SELECT_SOURCE,
+            "replaces": SELECT_REPLACES, "launches": launched, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+        })
+        print(f"[times] select_blocks@{tag} (S1, Q={Q} L={L} nb={nb} K={K} M={M}): median "
+              f"{ms:.4f} ms/launch (device {dev_us:.1f} us [the eager stage {twin_us:.1f} us]; "
+              f"host {hus:.1f} us/call; twin {plain_ms:.3f} ms), bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e6:.1f} Mop); bit-equal to the twin, {overlap:.3f} of slots filled",
+              flush=True)
+
+
+def select_sets_check(torch, got, want, args, M: int) -> tuple[int, int]:
+    """S1's outputs against its twin's at K >= 128, where torch vectorises
+    its sum and S1 keeps its own order: per (table, query) equal block sets
+    and equal sorted halfwidths, except where the M-th and (M+1)-th MINDIST
+    (float64, on the card) lie within float32 rounding, as
+    tests/test_torch_kernels.py::test_select_blocks_kernel_wide_k allows.
+    Returns the (table, query) rows compared and those skipped."""
+    lo, hi, g, half = args
+    L, nb, _ = lo.shape
+    M = min(M, nb)
+    kept = skipped = 0
+    for li in range(L):
+        lo64, hi64 = lo[li].double(), hi[li].double()
+        gb, gw = got[0][li].cpu(), got[1][li].cpu()
+        wb, ww = want[0][li].cpu(), want[1][li].cpu()
+        for q in range(g.shape[0]):  # a query at a time: (nb, K) in float64
+            g64 = g[q, li].double()
+            pd = torch.clamp(lo64 - g64, min=0) + torch.clamp(g64 - hi64, min=0)
+            ok = ((lo64 <= g64 + half) & (hi64 >= g64 - half)).all(-1)
+            score = torch.sort(torch.where(ok, pd.square().sum(-1), torch.inf)).values.cpu()
+            a = float(score[M - 1])
+            b = float(score[M]) if M < nb else math.inf
+            if a != b and math.isfinite(b) and b - a <= 1e-5 * max(1.0, b):
+                skipped += 1
+                continue
+            kept += 1
+            check(set(gb[q].tolist()) == set(wb[q].tolist())
+                  and torch.equal(torch.sort(gw[q]).values, torch.sort(ww[q]).values),
+                  f"S1: table {li}, query {q}: blocks {sorted(gb[q].tolist())} against the "
+                  f"twin's {sorted(wb[q].tolist())}")
+    return kept, skipped
+
+
 def stage_ms(events, on_card, stages) -> dict:
     """Device ms per stage: the device ops whose interval lies inside one
     of the stage's device-side ranges (the profiler's annotation of each
@@ -1115,23 +1216,29 @@ def wall_ms(torch, fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def fleet_profile_ms(torch, fn) -> float:
+def fleet_profile_ms(torch, fn, sessions: int = 3) -> float:
     """Device ms of one call of ``fn`` under the profiler: the sum of its
     device ops, after a few spin kernels that are left out (the first
-    records of a session can go missing, see phase 12)."""
+    records of a session can go missing, see phase 12).  A session that
+    kept no record of the call is taken again, up to ``sessions`` times;
+    if every one lost them, the time is queued_us's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.events()
-               if e.device_type.name == "CUDA" and not e.name.startswith("dblsh.")
-               and "spin_kernel" not in e.name) / 1e3
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.events()
+                 if e.device_type.name == "CUDA" and not e.name.startswith("dblsh.")
+                 and "spin_kernel" not in e.name)
+        if us > 0:
+            return us / 1e3
+    return queued_us(torch, fn) / 1e3
 
 
 def fleet_oracle(torch, np, fleet, Qb, skw: dict):
@@ -1255,8 +1362,10 @@ def fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, che
         check(torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1]),
               "fleet search: with_explain changed the results")
     torch.cuda.synchronize()
-    launched = {n_: c_ for n_, c_ in kernels.launches.items() if c_}
+    # every engine selects with S1; the torch engine verifies and merges in torch
+    launched = {n_: c_ for n_, c_ in kernels.launches.items() if c_ and n_ != "select_blocks"}
     check(not launched, f"fleet: the torch engine launched {launched}")
+    check(kernels.launches["select_blocks"] > 0, "fleet: the search never launched S1")
     _, gt = brute_force(fdata, Q64f, k=K_NN, device=dev)
     gt_sets = [set(r) for r in row_gid[gt].cpu().tolist()]
     d64, i64 = fleet.search(Q64f, **skw)
@@ -1277,8 +1386,8 @@ def fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, che
                             "one_shard_wall_ms": round(one, 3)}
     print(f"[fleet] search at Q={N_QUERIES} and {N_QUERIES_LARGE}: torch.equal to the "
           f"per-shard search_batch_fixed(engine='torch') + the merge rule, stats and "
-          f"explain equal to max/sum/first-argmax; zero kernel launches (the sharded "
-          f"path is pinned to the torch engine); recall@{K_NN} {recall:.4f} against brute "
+          f"explain equal to max/sum/first-argmax; no kernel launch but S1's (the "
+          f"sharded path is pinned to the torch engine); recall@{K_NN} {recall:.4f} against brute "
           f"force over {N_FLEET} points; {card}: {json.dumps(times)}", flush=True)
 
     # add 10,000 (to the least-loaded shard) and remove 10,000
@@ -1354,7 +1463,8 @@ def fleet_phase(torch, np, kernels, dev, card, service, strict_issue, drive, che
         check(all(t.done and not t.cached and t.engine == "torch" for t in tickets)
               and all(e == "torch" for _, _, e in svc.batch_log),
               f"fleet service (depth {depth}): a ticket not done, cached, or not on torch")
-        check(not any(kernels.launches.values()), "fleet service: a kernel launched")
+        check(not any(c_ for n_, c_ in kernels.launches.items() if n_ != "select_blocks"),
+              "fleet service: a kernel other than S1 launched")
         shapes = check_tickets(svc, tickets, f"fleet, depth {depth}")
         check(shapes == set(SVC_SHAPES), f"fleet service: shapes {shapes}")
         runs[depth] = tickets
@@ -1782,7 +1892,7 @@ def serve_requests(torch, np, kernels, model, params, store, r0, n_requests: int
                   "step_ms_p50": round(float(np.percentile(steps_ms, 50)), 3),
                   "step_ms_p99": round(float(np.percentile(steps_ms, 99)), 3),
                   "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4)
-                  if search_ms else 0.0}, {k: launched[k] for k in FUSED}
+                  if search_ms else 0.0}, {k: launched[k] for k in LM_COUNTED}
 
 
 def prefill_decode_gate(torch, tag, models, params, batch, cache_len):
@@ -1806,8 +1916,32 @@ def prefill_decode_gate(torch, tag, models, params, batch, cache_len):
 
 def path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores, h4, r0,
                         path_launches) -> None:
-    """B1/B2 at a datastore path's shapes (the serving engine's slots),
-    against their twins, timed, and recorded as ``<wrapper>@<tag>``."""
+    """B1/B2 and S1 at a datastore path's shapes (the serving engine's
+    slots), against their twins, timed, and recorded as ``<wrapper>@<tag>``.
+    S1's inputs are those of the kernel datastore's search (every engine
+    selects through S1), checked with select_sets_check."""
+    engine = "kernel" if "kernel" in stores else next(iter(stores))
+    a, k = capture_calls(kernels, wrappers, "select_blocks",
+                         lambda: stores[engine].search(h4, r0=r0, steps=LM_STEPS))
+    got, want = wrappers["select_blocks"](*a, **k), twins["select_blocks"](*a, **k)
+    kept, skipped = select_sets_check(torch, got, want, a, k["M"])
+    check(kept >= skipped, f"S1@{tag}: only {kept} of {kept + skipped} rows away from near-ties")
+    ms = cuda_ms(torch, lambda: wrappers["select_blocks"](*a, **k), iters=50)
+    plain_ms = cuda_ms(torch, lambda: twins["select_blocks"](*a, **k), iters=5)
+    dev_us = fleet_profile_ms(torch, lambda: wrappers["select_blocks"](*a, **k)) * 1e3
+    (L, nb, K), Qn = a[0].shape, a[2].shape[0]
+    bound_ms, bound_by, nbytes, ops = select_bound(L, Qn, nb, K, k["M"])
+    records.append({
+        "name": f"select_blocks@{tag}", "route": "cuda", "source": SELECT_SOURCE,
+        "replaces": SELECT_REPLACES, "launches": path_launches[engine]["select_blocks"],
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+    })
+    print(f"[{tag}] select_blocks@{tag}: Q={Qn}, L={L}, nb={nb}, K={K}, M={k['M']}: median "
+          f"{ms:.4f} ms/launch (device {dev_us:.1f} us; twin {plain_ms:.3f} ms), bound "
+          f"{bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop); "
+          f"block sets and halfwidths equal to the twin's on {kept} (table, query) rows, "
+          f"{skipped} at near-ties of the M-th MINDIST", flush=True)
     for name, engine in (("fused_cand_search", "kernel"), ("fused_window_search", "inline")):
         if engine not in stores:
             continue
@@ -2003,7 +2137,11 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
             torch, np, kernels, model, params, None if name == "none" else stores[name], r0,
             LM_REQUESTS)
     check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
-    check(not any(path_launches["torch"].values()), "the torch datastore launched a kernel")
+    check(not any(c_ for n_, c_ in path_launches["torch"].items() if n_ != "select_blocks"),
+          "the torch datastore launched a kernel other than S1")
+    check(all(path_launches[n_]["select_blocks"] > 0 for n_ in stores)
+          and not path_launches["none"]["select_blocks"],
+          f"a datastore never ran S1, or plain decoding did: {path_launches}")
     if "inline" in stores:
         check(path_launches["inline"]["fused_window_search"] > 0,
               "the inline datastore never ran B1")
@@ -2205,6 +2343,8 @@ def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_
     check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
     check(path_launches["inline"]["fused_window_search"] > 0, "the inline datastore never ran B1")
     check(not any(path_launches["none"].values()), "plain decoding launched a kernel")
+    check(all(path_launches[n_]["select_blocks"] > 0 for n_ in ("kernel", "inline")),
+          f"a datastore never ran S1: {path_launches}")
     print(f"[{tag}] ok: {ARCTIC_REQUESTS} requests x {LM_NEW} new tokens each served on "
           f"{LM_SLOTS} slots (cache {LM_CACHE}), without retrieval and through B2 and B1; {card}: "
           f"{json.dumps(runs)}; launches {json.dumps(path_launches)}", flush=True)
@@ -2976,7 +3116,7 @@ def batch_serve(torch, kernels, model, params, batch, store, r0):
         "step_ms_p50": round(statistics.median(steps_ms), 3),
         "step_ms_p99": round(sorted(steps_ms)[math.ceil(0.99 * len(steps_ms)) - 1], 3),
         "retrieval_share": round(sum(search_ms) / sum(steps_ms), 4) if search_ms else 0.0,
-    }, {k: launched[k] for k in FUSED}
+    }, {k: launched[k] for k in LM_COUNTED}
 
 
 def xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s,
@@ -3038,8 +3178,11 @@ def xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
         toks[name], tgaps[name], states[name], runs[name], path_launches[name] = batch_serve(
             torch, kernels, model, params, batch, None if name == "none" else stores[name], r0)
     check(path_launches["kernel"]["fused_cand_search"] > 0, "the kernel datastore never ran B2")
-    check(not any(path_launches["torch"].values()) and not any(path_launches["none"].values()),
-          "the torch datastore or plain decoding launched a kernel")
+    check(not any(c_ for n_, c_ in path_launches["torch"].items() if n_ != "select_blocks")
+          and not any(path_launches["none"].values()),
+          "the torch datastore launched a kernel other than S1, or plain decoding one")
+    check(all(path_launches[n_]["select_blocks"] > 0 for n_ in stores),
+          f"a datastore never ran S1: {path_launches}")
     if "inline" in stores:
         check(path_launches["inline"]["fused_window_search"] > 0,
               "the inline datastore never ran B1")
@@ -3117,8 +3260,8 @@ def search_phases(torch, np):
     from repro_torch.kernels import _build, ref
 
     dev = torch.device("cuda")
-    wrappers = {name: getattr(kernels, name) for name in KERNELS}
-    twins = {name: getattr(ref, f"{name}_ref") for name in KERNELS}
+    wrappers = {name: getattr(kernels, name) for name in (*KERNELS, "select_blocks")}
+    twins = {name: getattr(ref, f"{name}_ref") for name in (*KERNELS, "select_blocks")}
     max_err = {name: 0.0 for name in (*KERNELS, *B3)}
     b3_bits = {name: True for name in B3}  # int8: every output bit-equal to the twin so far
     engines = ("torch", "kernel", "inline")
@@ -3417,8 +3560,8 @@ def search_phases(torch, np):
         for key, fn in calls:
             before = dict(kernels.launches)
             results[key] = fn()
-            eng = per_engine.setdefault(key[0], {name: 0 for name in KERNELS})
-            for name in KERNELS:
+            eng = per_engine.setdefault(key[0], dict.fromkeys(kernels.launches, 0))
+            for name in eng:
                 eng[name] += kernels.launches[name] - before[name]
         torch.cuda.synchronize()
         return results, per_engine, dict(kernels.launches)
@@ -3428,6 +3571,9 @@ def search_phases(torch, np):
          for e in engines for x in (False, True)])
     for name in FUSED:
         check(onepass_launches[name] > 0, f"the main path never launched {name}")
+    check(onepass_launches["select_blocks"] == 2 * len(engines),
+          f"S1 launched {onepass_launches['select_blocks']} times in {2 * len(engines)} "
+          f"one-pass searches")
     print(f"[main] launches on the one-pass path (2 searches per engine: norm, exact): "
           f"{json.dumps(per_engine)}", flush=True)
 
@@ -3497,7 +3643,8 @@ def search_phases(torch, np):
     want = {"torch": {}, "kernel": {"candidate_verify": params.L * STEPS},
             "inline": {"window_verify": params.L * STEPS}}
     for engine in engines:
-        for name in KERNELS:
+        want[engine]["select_blocks"] = STEPS  # S1 once a step, on every engine
+        for name in per_engine[engine]:
             got = per_engine[engine][name]
             check(got == want[engine].get(name, 0),
                   f"multi-pass {engine}: {name} launched {got} times, want "
@@ -4056,6 +4203,9 @@ def search_phases(torch, np):
               f"{bound_by} ({(in_bytes + out_bytes) / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)",
               flush=True)
 
+    select_times(torch, np, kernels, ref, records,  # S1 at the cells' shapes
+                 onepass_launches["select_blocks"])
+
     # wall times: for each batch, engines in turns, each path timed alone
     wall = {}
     searches = {
@@ -4464,8 +4614,8 @@ def search_phases(torch, np):
             check(all(t.done and not t.cached for t in tickets),
                   f"service ({engine}, depth {depth}): a ticket is not done, or cached")
             n_batches = len(svc.batch_log)
-            check(launched[fused_of[engine]] == n_batches
-                  and sum(launched.values()) == n_batches,
+            check(launched[fused_of[engine]] == launched["select_blocks"] == n_batches
+                  and sum(launched.values()) == 2 * n_batches,
                   f"service ({engine}, depth {depth}): launches {launched} for "
                   f"{n_batches} batches")
             shapes = check_tickets(svc, tickets, f"{engine}, depth {depth}")
@@ -4485,8 +4635,8 @@ def search_phases(torch, np):
               f"service ({engine}): no batch was issued while another was in flight")
     print(f"[service] {N_QUERIES_LARGE} queries one at a time (chunks {SVC_CHUNKS}), "
           f"batch shapes {SVC_SHAPES}: every ticket bit-equal to Collection.search on its "
-          f"padded batch (all four shapes), depth 0 == depth 2, one B1/B2 launch per "
-          f"batch, no host sync in the issue stage at depth 2 (set_sync_debug_mode): "
+          f"padded batch (all four shapes), depth 0 == depth 2, one B1/B2 and one S1 launch "
+          f"per batch, no host sync in the issue stage at depth 2 (set_sync_debug_mode): "
           f"{json.dumps(svc_numbers)}", flush=True)
 
     # QPS and ticket latency: after a warm pass per engine (the first batch

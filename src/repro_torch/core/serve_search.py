@@ -6,7 +6,7 @@ schedule, so the search
 
   1. projects the queries once (one einsum);
   2. selects blocks once, at the final radius (``_select_blocks``: MBR
-     overlap test plus the M smallest MINDIST per table);
+     overlap test plus the M smallest MINDIST per table, kernel S1);
   3. verifies every selected slot once, emitting its distance and its
      window halfwidth ``hw = max_k |p_k - g_k|``;
   4. merges, per step, only the slots newly admitted at that step.
@@ -153,36 +153,18 @@ def _c2_bound(p, r) -> float:
 
 
 def _select_blocks(index: DBLSHIndex, G: torch.Tensor, w: float):
-    """MINDIST-ordered fixed-capacity block selection for a query batch.
+    """MINDIST-ordered fixed-capacity block selection for a query batch
+    (kernel S1 on the card, its twin ``ref.select_blocks_ref`` on the CPU).
 
     G: (Q, L, K) query projections.  Returns (blk, bhw), each (L, Q, M):
     block ids (nb = invalid) and per-block window halfwidths — the L∞ box
     distance from the query projection to the block MBR, the smallest
     half width whose window overlaps the block (+inf on invalid slots).
-
-    Ties: the reference's ``lax.top_k`` takes the lowest block index
-    among equal scores, and MINDIST ties at exactly 0 are common (every
-    block whose MBR contains g scores 0).  ``torch.topk`` promises no tie
-    order, so this takes the first M of a stable ascending sort."""
-    M = index.params.max_blocks
-    nb = index.nb
-    half = 0.5 * w
-    blks, bhws = [], []
-    for li in range(index.params.L):  # one table at a time bounds memory
-        lo_, hi_ = index.mbr_lo[li][None], index.mbr_hi[li][None]  # (1, nb, K)
-        g = G[:, li, None, :]  # (Q, 1, K)
-        overlap = ((lo_ <= g + half) & (hi_ >= g - half)).all(dim=-1)
-        # per-dim box distance (at most one term is positive for a valid
-        # MBR, so the sum equals the clamped max)
-        pd = torch.clamp(lo_ - g, min=0.0) + torch.clamp(g - hi_, min=0.0)
-        mindist = torch.sum(torch.square(pd), dim=-1)  # (Q, nb)
-        score = torch.where(overlap, mindist, torch.inf)
-        blk = torch.sort(score, dim=1, stable=True).indices[:, :M]
-        sel_ok = torch.gather(overlap, 1, blk)
-        bhw = torch.gather(pd.amax(dim=-1), 1, blk)
-        blks.append(torch.where(sel_ok, blk, nb).to(torch.int32))
-        bhws.append(torch.where(sel_ok, bhw, torch.inf))
-    return torch.stack(blks), torch.stack(bhws)
+    Ties go to the lowest block index, as the reference's ``lax.top_k``.
+    The kernel takes contiguous operands: a shard restored from a split
+    snapshot holds strided MBRs, and the multi-pass oracle a strided G."""
+    return kernels.select_blocks(index.mbr_lo.contiguous(), index.mbr_hi.contiguous(),
+                                 G.contiguous(), 0.5 * w, M=index.params.max_blocks)
 
 
 def _gather_pool(index: DBLSHIndex, blk_q, G, Q, engine: str, exact: bool):

@@ -11,6 +11,7 @@ from .ops import (
     mode_launches,
     pairwise_l2,
     reset_launches,
+    select_blocks,
     window_dist,
     window_verify,
 )
@@ -24,6 +25,7 @@ __all__ = [
     "mode_launches",
     "pairwise_l2",
     "reset_launches",
+    "select_blocks",
     "window_dist",
     "window_verify",
     "ref",

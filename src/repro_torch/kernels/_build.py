@@ -23,7 +23,7 @@ __all__ = ["build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("fused_search.cu", "window_verify.cu", "dist.cu",
-                                      "pairwise_l2.cu"))
+                                      "pairwise_l2.cu", "select.cu"))
 _HEADERS = (_CSRC / "search_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "window_dist_launch": ((_P,) * 9 + (_I,) * 9 + (_P,), _I),
     "candidate_dist_launch": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     "pairwise_l2_launch": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
+    "select_scratch_keys": ((_I,) * 5, ctypes.c_size_t),
+    "select_blocks_launch": ((_P,) * 3 + (_F,) + (_P,) * 3 + (_I,) * 5 + (_P,), _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -24,6 +24,7 @@ from .ref import (
     fused_cand_search_ref,
     fused_window_search_ref,
     pairwise_l2_ref,
+    select_blocks_ref,
     window_dist_ref,
     window_verify_ref,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "window_dist",
     "candidate_dist",
     "pairwise_l2",
+    "select_blocks",
     "launches",
     "mode_launches",
     "reset_launches",
@@ -51,7 +53,8 @@ _X_DTYPES = {"norm": torch.float32, "exact": torch.float32, "bf16": torch.bfloat
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fused_window_search": 0, "fused_cand_search": 0, "window_verify": 0,
-            "candidate_verify": 0, "window_dist": 0, "candidate_dist": 0, "pairwise_l2": 0}
+            "candidate_verify": 0, "window_dist": 0, "candidate_dist": 0, "pairwise_l2": 0,
+            "select_blocks": 0}
 #: the fused kernels' launches per distance mode (their sum is ``launches``)
 mode_launches = {name: dict.fromkeys(_MODES, 0)
                  for name in ("fused_window_search", "fused_cand_search")}
@@ -512,3 +515,47 @@ def pairwise_l2(Q, X):
     _raise_on(lib, err, "pairwise_l2")
     launches["pairwise_l2"] += 1
     return out
+
+
+def select_blocks(mbr_lo, mbr_hi, g, half: float, *, M: int):
+    """MINDIST-ordered block selection of every table in one pass over the
+    MBRs (kernel S1).
+
+    Args:
+      mbr_lo, mbr_hi: (L, nb, K) f32 block bounding boxes; g: (Q, L, K) f32
+        query projections; half: the window's half width (taken in
+        float32, as torch takes a Python scalar); M >= 1: blocks kept a
+        table, of which at most nb are (the twin's sort has nb columns).
+
+    Returns: blk (L, Q, min(M, nb)) int32, the overlapping blocks of
+    smallest MINDIST in ascending (MINDIST, index) order (``nb`` where
+    fewer overlap), and bhw (L, Q, min(M, nb)) f32, their L∞ box distances
+    to g (+inf on those slots): :func:`ref.select_blocks_ref`'s outputs,
+    bit for bit where K < 128.
+    """
+    if not _on_cuda(mbr_lo, mbr_hi, g):
+        return select_blocks_ref(mbr_lo, mbr_hi, g, half, M=M)
+    L, nb, K = mbr_lo.shape
+    Qn = g.shape[0]
+    f32 = torch.float32
+    _check("mbr_lo", mbr_lo, f32, (L, nb, K))
+    _check("mbr_hi", mbr_hi, f32, (L, nb, K))
+    _check("g", g, f32, (Qn, L, K))
+    if M < 1 or K < 1:
+        raise ValueError(f"select_blocks: M={M} or K={K} below 1")
+    M = min(M, nb)
+    blk = torch.empty((L, Qn, M), dtype=torch.int32, device=g.device)
+    bhw = torch.empty((L, Qn, M), dtype=f32, device=g.device)
+    if Qn == 0 or M == 0:
+        return blk, bhw
+    lib = _build.load()
+    part = torch.empty((lib.select_scratch_keys(Qn, L, nb, K, M),), dtype=torch.int64,
+                       device=g.device)
+    with torch.cuda.device(g.device):
+        err = lib.select_blocks_launch(
+            *map(_ptr, (mbr_lo, mbr_hi, g)), float(half), *map(_ptr, (part, blk, bhw)),
+            Qn, L, nb, K, M, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(lib, err, "select_blocks")
+    launches["select_blocks"] += 1
+    return blk, bhw

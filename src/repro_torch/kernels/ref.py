@@ -27,6 +27,7 @@ __all__ = [
     "window_dist_ref",
     "candidate_dist_ref",
     "pairwise_l2_ref",
+    "select_blocks_ref",
 ]
 
 IMAX = 2**31 - 1
@@ -278,3 +279,38 @@ def pairwise_l2_ref(Q: torch.Tensor, X: torch.Tensor):
     qn = torch.sum(torch.square(Q), dim=-1, keepdim=True)
     xn = torch.sum(torch.square(X), dim=-1)
     return torch.clamp(qn - 2.0 * (Q @ X.T) + xn, min=0.0)
+
+
+def select_blocks_ref(mbr_lo, mbr_hi, g, half: float, *, M: int):
+    """Twin of the block selection kernel (S1): MINDIST-ordered
+    fixed-capacity selection for a query batch.
+
+    mbr_lo, mbr_hi: (L, nb, K) block bounding boxes; g: (Q, L, K) query
+    projections; half: the window's half width.  Returns (blk, bhw), each
+    (L, Q, M): per table and query the M blocks of smallest MINDIST among
+    those whose box overlaps the window (``nb`` where fewer overlap) and
+    their L∞ box distances to g (+inf on those slots).
+
+    Ties: the reference's ``lax.top_k`` takes the lowest block index
+    among equal scores, and MINDIST ties at exactly 0 are common (every
+    block whose MBR contains g scores 0).  ``torch.topk`` promises no tie
+    order, so this takes the first M of a stable ascending sort.  On the
+    card, MINDIST's sum runs in torch's order for a contiguous last
+    dimension, which the kernel follows (``csrc/select.cu``)."""
+    nb = mbr_lo.shape[1]
+    blks, bhws = [], []
+    for li in range(mbr_lo.shape[0]):  # one table at a time bounds memory
+        lo_, hi_ = mbr_lo[li][None], mbr_hi[li][None]  # (1, nb, K)
+        gl = g[:, li, None, :]  # (Q, 1, K)
+        overlap = ((lo_ <= gl + half) & (hi_ >= gl - half)).all(dim=-1)
+        # per-dim box distance (at most one term is positive for a valid
+        # MBR, so the sum equals the clamped max)
+        pd = torch.clamp(lo_ - gl, min=0.0) + torch.clamp(gl - hi_, min=0.0)
+        mindist = torch.sum(torch.square(pd), dim=-1)  # (Q, nb)
+        score = torch.where(overlap, mindist, torch.inf)
+        blk = torch.sort(score, dim=1, stable=True).indices[:, :M]
+        sel_ok = torch.gather(overlap, 1, blk)
+        bhw = torch.gather(pd.amax(dim=-1), 1, blk)
+        blks.append(torch.where(sel_ok, blk, nb).to(torch.int32))
+        bhws.append(torch.where(sel_ok, bhw, torch.inf))
+    return torch.stack(blks), torch.stack(bhws)

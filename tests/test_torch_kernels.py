@@ -24,6 +24,7 @@ from repro_torch.kernels import (  # noqa: E402
     fused_window_search,
     launches,
     pairwise_l2,
+    select_blocks,
     window_dist,
     window_verify,
 )
@@ -1261,3 +1262,208 @@ def test_pairwise_l2_kernel_grid_limits(cuda):
         got = pairwise_l2(q, x)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, _pairwise_l2_twin(q, x), rtol=1e-4, atol=1e-4 * 8)
+
+
+# ---------------------------------------------------------------- S1
+
+def _select_case(seed, Q, L, nb, K, kind="random"):
+    """Boxes and query projections for the block selection, from numpy:
+    float32 values off any grid, with the half width set so that ~20
+    blocks a (table, query) overlap.  ``grid``: values on a 1/16 grid, a
+    third nudged by 2^-18, so that MINDIST ties exactly and nearly at the M
+    cut; ``zeros``: every third block's box holds every query, so more
+    than M blocks score 0; ``few``: a half width under which most
+    (table, query) pairs see fewer than M overlapping blocks."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1, 1, (L, nb, K))
+    e = rng.uniform(0, 0.3, (L, nb, K))
+    g = rng.uniform(-1, 1, (Q, L, K))
+    p = min(1.0, 20.0 / nb) ** (1.0 / K)  # a dimension's overlap probability
+    half = max(2.0 * (1.0 - np.sqrt(1.0 - p)) - 0.15, 0.01)
+    if kind == "grid":
+        c, e, g = (np.round(x * 16) / 16 for x in (c, e, g))
+        c += rng.integers(-1, 2, c.shape) * 2.0 ** -18
+        half = float(np.round(half * 16) / 16)
+    if kind == "few":
+        half = 0.02
+    lo, hi = (c - e).astype(np.float32), (c + e).astype(np.float32)
+    if kind == "zeros":
+        lo[:, ::3], hi[:, ::3] = -1e6, 1e6
+    return lo, hi, g.astype(np.float32), float(np.float32(half))
+
+
+def _select_on(case, device):
+    lo, hi, g, half = case
+    return (*(torch.from_numpy(x).to(device) for x in (lo, hi, g)), half)
+
+
+SELECT_CASES = [  # (Q, L, nb, K, kind, M)
+    (256, 5, 156_250, 10, "random", 5),  # sift10m.batch256
+    (1024, 5, 15_625, 10, "random", 5),  # gist1m.batch1024
+    (256, 5, 156_250, 10, "grid", 5),
+    (1024, 5, 15_625, 10, "grid", 5),
+    (64, 3, 5_000, 10, "zeros", 5),
+    (64, 3, 5_000, 10, "few", 5),
+    (1, 5, 20_000, 10, "grid", 5),
+    (77, 2, 1_237, 10, "grid", 6),
+    (130, 3, 999, 10, "random", 16),
+    (5, 2, 40, 10, "random", 40),
+    (3, 2, 5, 10, "zeros", 5),
+    (50, 2, 3_001, 8, "grid", 5),
+    (50, 2, 3_001, 16, "grid", 5),
+    (50, 2, 3_001, 17, "grid", 5),
+    (50, 2, 3_001, 32, "grid", 5),
+    (9, 2, 2_001, 3, "grid", 8),
+    (33, 2, 700, 100, "grid", 64),
+    (40, 2, 3_001, 10, "grid", 100),  # M past a thread's list: the warp path at K < 32
+    (6, 3, 700, 17, "zeros", 700),  # M = nb
+    (9, 2, 2_001, 100, "zeros", 300),
+    (5, 2, 40, 10, "random", 45),  # M > nb: the twin keeps nb slots
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SELECT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_select_blocks_kernel_matches_twin(cuda, case):
+    """S1 against its twin on the card, ``torch.equal`` on both outputs:
+    the benchmark cells' shapes, near and exact MINDIST ties at the M cut,
+    more than M blocks at MINDIST 0, fewer than M overlapping blocks (the
+    nb / +inf slots), Q = 1, ragged tiles, the thread path's widths and the
+    warp path below K = 128 (torch's summation order on both), and M past
+    what a thread's list holds, up to nb and beyond it."""
+    Q, L, nb, K, kind, M = case
+    args = _select_on(_select_case(Q * 7 + nb + K, Q, L, nb, K, kind), cuda)
+    before = launches["select_blocks"]
+    blk, bhw = select_blocks(*args, M=M)
+    torch.cuda.synchronize()
+    assert launches["select_blocks"] == before + 1
+    want_blk, want_bhw = twin.select_blocks_ref(*args, M=M)
+    assert blk.shape == (L, Q, min(M, nb)) and blk.dtype == torch.int32
+    assert torch.equal(blk, want_blk)
+    assert torch.equal(bhw, want_bhw)
+    if kind == "few":
+        assert (blk == nb).any()
+    if kind == "zeros" and nb > 3 * M:
+        assert torch.equal(blk[..., :M], torch.arange(0, 3 * M, 3, dtype=torch.int32,
+                                                     device=cuda).expand(L, Q, M))
+
+
+@pytest.mark.cuda
+def test_select_blocks_kernel_wide_k(cuda):
+    """The LM datastores' width, K = 3,077: torch vectorises its sum there
+    and S1 keeps its own fixed order, so block sets are equal except where
+    the M-th and (M+1)-th MINDIST lie within float32 rounding, as
+    test_torch_serve_search.py::test_select_blocks_matches_reference
+    allows; halfwidths of equal sets are equal."""
+    Q, L, nb, K, M = 4, 2, 2_048, 3_077, 5
+    rng = np.random.default_rng(11)
+    lo = (-1 + rng.uniform(0, 0.1, (L, nb, K))).astype(np.float32)
+    hi = (1 - rng.uniform(0, 0.1, (L, nb, K))).astype(np.float32)
+    far = rng.integers(0, K, (L, nb))
+    for li in range(L):  # a third of the blocks fail in one dimension
+        rows = np.arange(0, nb, 3)
+        lo[li, rows, far[li, rows]] = hi[li, rows, far[li, rows]] = 5.0
+    g = rng.uniform(-1.05, 1.05, (Q, L, K)).astype(np.float32)
+    half = 0.2
+    blk, bhw = select_blocks(*_select_on((lo, hi, g, half), cuda), M=M)
+    want_blk, want_bhw = twin.select_blocks_ref(*_select_on((lo, hi, g, half), cuda), M=M)
+    blk, bhw, want_blk, want_bhw = (x.cpu().numpy() for x in (blk, bhw, want_blk, want_bhw))
+    kept = 0
+    for li in range(L):
+        g64 = g[:, li, None, :].astype(np.float64)
+        pd = np.maximum(lo[li][None] - g64, 0) + np.maximum(g64 - hi[li][None], 0)
+        ok = ((lo[li][None] <= g64 + half) & (hi[li][None] >= g64 - half)).all(-1)
+        score = np.sort(np.where(ok, (pd ** 2).sum(-1), np.inf), axis=1)
+        for qq in range(Q):
+            a, b = score[qq, M - 1], score[qq, M]
+            if a != b and np.isfinite(b) and b - a <= 1e-5 * max(1.0, b):
+                continue
+            kept += 1
+            assert set(blk[li, qq].tolist()) == set(want_blk[li, qq].tolist()), (li, qq)
+            np.testing.assert_array_equal(np.sort(bhw[li, qq]), np.sort(want_bhw[li, qq]))
+    assert kept >= L * Q // 2
+
+
+@pytest.mark.cuda
+def test_select_blocks_wrapper_checks(cuda):
+    """Each call counts one launch; a wrong dtype, a wrong shape, operands
+    on two devices and an M below 1 raise."""
+    lo, hi, g, half = _select_on(_select_case(3, 8, 2, 300, 10), cuda)
+    before = launches["select_blocks"]
+    for _ in range(3):
+        select_blocks(lo, hi, g, half, M=5)
+    assert launches["select_blocks"] == before + 3
+    with pytest.raises(TypeError):
+        select_blocks(lo, hi, g.double(), half, M=5)
+    with pytest.raises(ValueError):
+        select_blocks(lo, hi, g[:, :1].contiguous(), half, M=5)
+    with pytest.raises(ValueError):
+        select_blocks(lo, hi[:, :-1].contiguous(), g, half, M=5)
+    with pytest.raises(ValueError, match="several devices"):
+        select_blocks(lo, hi, g.cpu(), half, M=5)
+    with pytest.raises(ValueError):
+        select_blocks(lo, hi, g, half, M=0)
+    assert launches["select_blocks"] == before + 3
+
+
+@pytest.mark.cuda
+def test_select_blocks_on_the_search_path(cuda, monkeypatch):
+    """A search on the card selects through S1: one launch a one-pass call
+    on every engine, one a step in the multi-pass oracle, and the twin
+    never sees a CUDA tensor."""
+    from repro_torch.core import DBLSHParams, build, search_batch_fixed, search_batch_fixed_ref
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    data = torch.from_numpy(rng.standard_normal((4096, 16)).astype(np.float32))
+    params = DBLSHParams.derive(n=4096, d=16, k=5, K=6, L=3, inline_vectors=True)
+    proj = torch.from_numpy(rng.standard_normal((params.L, params.K, 16)).astype(np.float32))
+    index = build(data.to(cuda), params, proj_vecs=proj.to(cuda), device=cuda)
+    Q = data[:7].to(cuda)
+    monkeypatch.setattr(ops, "select_blocks_ref", lambda *a, **k: pytest.fail("twin on CUDA"))
+    for engine in ("torch", "kernel", "inline"):
+        before = launches["select_blocks"]
+        search_batch_fixed(index, Q, k=5, r0=0.5, steps=4, engine=engine, device=cuda)
+        assert launches["select_blocks"] == before + 1, engine
+        before = launches["select_blocks"]
+        search_batch_fixed_ref(index, Q, k=5, r0=0.5, steps=4, engine=engine, device=cuda)
+        assert launches["select_blocks"] == before + 4, engine
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["torch", "inline"])
+def test_select_blocks_search_past_a_threads_list(cuda, engine, monkeypatch):
+    """An index whose max_blocks (100) is past what a thread's list holds
+    searches on the card through S1 (its warp path) and answers as the same
+    search with the twin selecting on the same tensors, bit for bit."""
+    import repro_torch.kernels as kernels_mod
+    from repro_torch.core import DBLSHParams, build, search_batch_fixed
+
+    rng = np.random.default_rng(13)
+    data = torch.from_numpy(rng.standard_normal((8192, 16)).astype(np.float32))
+    params = DBLSHParams.derive(n=8192, d=16, k=5, K=6, L=3, max_blocks=100,
+                                inline_vectors=True)
+    proj = torch.from_numpy(rng.standard_normal((params.L, params.K, 16)).astype(np.float32))
+    index = build(data.to(cuda), params, proj_vecs=proj.to(cuda), device=cuda)
+    assert index.params.max_blocks == 100 < index.nb
+    Q = data[:9].to(cuda)
+    kw = dict(k=5, r0=0.5, steps=4, engine=engine, with_stats=True, device=cuda)
+    before = launches["select_blocks"]
+    got = search_batch_fixed(index, Q, **kw)
+    assert launches["select_blocks"] == before + 1
+    monkeypatch.setattr(kernels_mod, "select_blocks", twin.select_blocks_ref)
+    want = search_batch_fixed(index, Q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_select_blocks_cpu_is_the_twin():
+    """On CPU tensors the wrapper returns the twin's outputs and counts no
+    launch."""
+    args = _select_on(_select_case(5, 9, 3, 400, 10, "grid"), "cpu")
+    before = dict(launches)
+    got = select_blocks(*args, M=5)
+    want = twin.select_blocks_ref(*args, M=5)
+    assert launches == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

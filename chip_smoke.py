@@ -36,13 +36,16 @@ Phases, each printing a line (with its seconds) when it passes:
                  queries, steps = 8, r0 = 0.5) through the one-pass
                  ``search_batch_fixed`` with engines torch, kernel and
                  inline; checks that B1/B2 ran and S1 once a search (every
-                 engine selects through it), that the kernel engines
+                 engine selects through it), M1 once a search on kernel and
+                 inline and never on torch (its pool path merges in torch),
+                 that the kernel engines
                  return the torch engine's id sets (all of them with
                  exact=True; in norm form, a query may differ only where
                  every differing id lies within the norm-scaled atol of its
                  k-th distance, and the raw parity is printed), recall@10
                  >= 0.5 against brute force, and each kernel against its
-                 twin on the inputs the main path gave it;
+                 twin on the inputs the main path gave it (M1 on every
+                 output, plain and under Termination() with explain);
 4. multipass   — the same workload through the multi-pass oracle
                  ``search_batch_fixed_ref``, all three engines: B6 (inline)
                  and B7 (kernel) launch L·steps = 40 times per search, S1
@@ -104,8 +107,9 @@ Phases, each printing a line (with its seconds) when it passes:
                  beside the least time the card could take (every
                  kernel at both batches; for B8 also torch.cdist and
                  Q @ X.T, and the kernel / cdist and kernel / Q @ X.T
-                 ratios); S1 at the benchmark cells' shapes, bit-equal to
-                 its twin, beside the eager stage it replaced; median wall times
+                 ratios); S1 and M1 at the benchmark cells' shapes, bit-equal
+                 to their twins, beside the eager code each replaced; median
+                 wall times
                  of the one-pass search, the
                  multi-pass search, the one-pass search under
                  Termination() and the quantized searches, per engine, at
@@ -148,7 +152,8 @@ Phases, each printing a line (with its seconds) when it passes:
                  flush: every ticket bit-equal to ``Collection.search`` on
                  its own padded batch (all four shapes; stats and payload
                  rows too), depth 0 == depth 2, one B1 (inline) or B2
-                 (kernel) launch per batch, recall@10 >= 0.5, no host sync
+                 (kernel), one S1 and one M1 launch per batch, and no
+                 other, recall@10 >= 0.5, no host sync
                  in the issue stage at depth 2 (under
                  ``torch.cuda.set_sync_debug_mode("error")``), a batch
                  issued while another was in flight; QPS and p50/p99 ticket
@@ -223,12 +228,14 @@ Phases, each printing a line (with its seconds) when it passes:
                  at temperature 0.8 / top-k 40) served on 4 slots without
                  retrieval and through each datastore, every one finished
                  with its 32 tokens, B2 / B1 launched on their runs, S1 on
-                 every datastore's and no other kernel on torch's; two greedy
+                 every datastore's and no other kernel on torch's, M1 once a
+                 decode step on kernel's and inline's; two greedy
                  requests decoded alone equal the shared batch up to a
                  near-tie; B1/B2 held against their twins on this path's
-                 inputs (d = 4096, Q = 4), and S1 against its twin on the
-                 datastore search's own inputs (K = 3077: equal block sets
-                 and halfwidths away from near-ties of the M-th MINDIST).
+                 inputs (d = 4096, Q = 4), and S1 and M1 against their twins
+                 on the datastore search's own inputs (S1 at K = 3077: equal
+                 block sets and halfwidths away from near-ties of the M-th
+                 MINDIST; M1 equal on every output).
                  Reported:
                  recall@8 and the overall ratio of the datastore, decode step
                  ms p50/p99, tokens/s and the retrieval share per run, the
@@ -389,7 +396,7 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/pairwise_l2.py:25"),
 }
 FUSED = ("fused_window_search", "fused_cand_search")
-LM_COUNTED = (*FUSED, "select_blocks")  # the kNN-LM phases' launch counts
+LM_COUNTED = (*FUSED, "select_blocks", "merge_schedule")  # the kNN-LM phases' launch counts
 VERIFY = ("window_verify", "candidate_verify")
 POOL = ("window_dist", "candidate_dist")  # B4, B5: the pool engines of _gather_pool
 NORM_ATOL = 4e-6  # x (max ||x||^2 + max ||q||^2): the norm form's cancellation
@@ -1091,6 +1098,96 @@ def select_sets_check(torch, got, want, args, M: int) -> tuple[int, int]:
                   f"S1: table {li}, query {q}: blocks {sorted(gb[q].tolist())} against the "
                   f"twin's {sorted(wb[q].tolist())}")
     return kept, skipped
+
+
+MERGE_SHAPES = {"sift10m": 256, "gist1m": 1024}  # M1 at the cells' shapes: Q (S = 8, k = kb = 10)
+MERGE_SOURCE = "src/repro_torch/kernels/csrc/merge.cu"
+MERGE_REPLACES = ("none (the JAX package's per-step jnp merge_dedup_topk, "
+                  "src/repro/core/serve_search.py:680)")
+
+
+def merge_equal(torch, got, want) -> bool:
+    """M1's outputs against its twin's: ``torch.equal`` on the results and
+    on every stats and explain array."""
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if want[2] is not None:
+        same = same and got[2].keys() == want[2].keys() and all(
+            torch.equal(got[2][key], want[2][key]) for key in want[2])
+    return same
+
+
+def merge_bound(Q, S, kb, k, T=0) -> tuple[float, int]:
+    """M1's least time (ms) and its bytes: the bins (and the halfwidths, if
+    any) read once and the results written once, at 3.35 TB/s."""
+    nbytes = Q * S * kb * 8 + Q * T * 4 + 3 * S * 4 + Q * k * 8
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def merge_record(torch, wrapper, twin, records, name, args, kw, launched) -> str:
+    """Times of one M1 call (``wrapper``) beside its twin's and its bound,
+    appended as the record ``name``; returns the line's numbers."""
+    ms = cuda_ms(torch, lambda: wrapper(*args, **kw), iters=50)
+    plain_ms = cuda_ms(torch, lambda: twin(*args, **kw), iters=5)
+    dev_us = fleet_profile_ms(torch, lambda: wrapper(*args, **kw)) * 1e3
+    twin_us = fleet_profile_ms(torch, lambda: twin(*args, **kw)) * 1e3
+    hus = host_us(torch, lambda: wrapper(*args, **kw))
+    Q, S, kb = args[0].shape
+    bound_ms, nbytes = merge_bound(Q, S, kb, kw["k"], 0 if args[2] is None else args[2].shape[1])
+    records.append({
+        "name": name, "route": "cuda", "source": MERGE_SOURCE, "replaces": MERGE_REPLACES,
+        "launches": launched, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+    })
+    return (f"median {ms:.4f} ms/launch (device {dev_us:.1f} us [the eager loop {twin_us:.1f} "
+            f"us]; host {hus:.1f} us/call; twin {plain_ms:.3f} ms), bound "
+            f"{bound_ms * 1e3:.3f} us by bytes ({nbytes / 1e6:.3f} MB)")
+
+
+def merge_times(torch, np, kernels, ref, records: list, launched: int) -> None:
+    """Kernel M1 at the benchmark cells' shapes (Q = 256 / 1,024, 8 steps,
+    k = kb = 10, C2 on, no stats, as ``Collection.search`` runs it there)
+    on bins shaped like B1's (each ascending and distinct, a fifth of the
+    slots unfilled, distances growing with the step): bit-equal to its twin
+    on the card, then its times beside the twin's (the eager loop it
+    replaced) and its bound.  C2's bounds are 0, so every query runs all 8
+    steps.  ``launched`` is M1's launches on the main path (phase 3)."""
+    dev = torch.device("cuda")
+    S, k = 8, 10
+    for tag, Q in MERGE_SHAPES.items():
+        rng = np.random.default_rng(Q)
+        d = np.sort(rng.uniform(0, 1, (Q, S, k)), axis=-1) + np.arange(S)[None, :, None]
+        ids = rng.integers(0, 10_000_000, (Q, S, k))
+        empty = rng.random((Q, S, k)) < 0.2
+        d, ids = np.where(empty, np.inf, d), np.where(empty, 10_000_000, ids)
+        order = np.argsort(d, axis=-1, kind="stable")
+        d, ids = np.take_along_axis(d, order, -1), np.take_along_axis(ids, order, -1)
+        sched = np.stack([0.5 * 1.5 ** np.arange(S), np.zeros(S), 1.5 ** np.arange(S)])
+        args = (torch.from_numpy(d.astype(np.float32)).to(dev),
+                torch.from_numpy(ids.astype(np.int32)).to(dev), None, None,
+                torch.from_numpy(sched.astype(np.float32)).to(dev))
+        kw = dict(k=k, n=10_000_000, B=64, use_c2=True)
+        before = kernels.launches["merge_schedule"]
+        got = kernels.merge_schedule(*args, **kw)
+        want = ref.merge_schedule_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(kernels.launches["merge_schedule"] == before + 1, f"M1@{tag}: launch not counted")
+        check(merge_equal(torch, got, want), f"M1@{tag}: differs from its twin")
+        line = merge_record(torch, kernels.merge_schedule, ref.merge_schedule_ref, records,
+                            f"merge_schedule@{tag}", args, kw, launched)
+        print(f"[times] merge_schedule@{tag} (M1, Q={Q} S={S} k=kb={k}): {line}; bit-equal "
+              f"to the twin", flush=True)
+
+
+def merge_lm_checks(tag, path_launches) -> None:
+    """M1 on the LM paths: one launch a datastore search on the fused
+    engines (each search launches one B1 or B2), none on the torch
+    datastore's fp32 pool path nor without retrieval."""
+    for name, counts in path_launches.items():
+        fused = sum(counts[f] for f in FUSED)
+        check(counts["merge_schedule"] == fused
+              and (fused > 0) == (name in ("kernel", "inline")),
+              f"{tag}: the {name} path launched M1 {counts['merge_schedule']} times beside "
+              f"{fused} B1/B2 launches")
 
 
 def stage_ms(events, on_card, stages) -> dict:
@@ -1942,6 +2039,20 @@ def path_kernel_records(torch, kernels, wrappers, twins, records, tag, stores, h
           f"{bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop); "
           f"block sets and halfwidths equal to the twin's on {kept} (table, query) rows, "
           f"{skipped} at near-ties of the M-th MINDIST", flush=True)
+    for engine in ("kernel", "inline"):
+        if engine not in stores:
+            continue
+        a, k = capture_calls(kernels, wrappers, "merge_schedule",
+                             lambda: stores[engine].search(h4, r0=r0, steps=LM_STEPS))
+        check(merge_equal(torch, wrappers["merge_schedule"](*a, **k),
+                          twins["merge_schedule"](*a, **k)),
+              f"M1@{tag} ({engine}): differs from its twin on the datastore's bins")
+        line = merge_record(torch, wrappers["merge_schedule"], twins["merge_schedule"], records,
+                            f"merge_schedule@{tag}[{engine}]", a, k,
+                            path_launches[engine]["merge_schedule"])
+        Qn, S, kb = a[0].shape
+        print(f"[{tag}] merge_schedule@{tag}[{engine}]: Q={Qn}, S={S}, kb={kb}, k={k['k']}: "
+              f"{line}; equal to the twin on every output", flush=True)
     for name, engine in (("fused_cand_search", "kernel"), ("fused_window_search", "inline")):
         if engine not in stores:
             continue
@@ -2142,6 +2253,7 @@ def knnlm_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
     check(all(path_launches[n_]["select_blocks"] > 0 for n_ in stores)
           and not path_launches["none"]["select_blocks"],
           f"a datastore never ran S1, or plain decoding did: {path_launches}")
+    merge_lm_checks(tag, path_launches)
     if "inline" in stores:
         check(path_launches["inline"]["fused_window_search"] > 0,
               "the inline datastore never ran B1")
@@ -2345,6 +2457,7 @@ def arctic_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_
     check(not any(path_launches["none"].values()), "plain decoding launched a kernel")
     check(all(path_launches[n_]["select_blocks"] > 0 for n_ in ("kernel", "inline")),
           f"a datastore never ran S1: {path_launches}")
+    merge_lm_checks(tag, path_launches)
     print(f"[{tag}] ok: {ARCTIC_REQUESTS} requests x {LM_NEW} new tokens each served on "
           f"{LM_SLOTS} slots (cache {LM_CACHE}), without retrieval and through B2 and B1; {card}: "
           f"{json.dumps(runs)}; launches {json.dumps(path_launches)}", flush=True)
@@ -3183,6 +3296,7 @@ def xattn_phase(torch, np, dev, card, kernels, wrappers, twins, records, phase_s
           "the torch datastore launched a kernel other than S1, or plain decoding one")
     check(all(path_launches[n_]["select_blocks"] > 0 for n_ in stores),
           f"a datastore never ran S1: {path_launches}")
+    merge_lm_checks(tag, path_launches)
     if "inline" in stores:
         check(path_launches["inline"]["fused_window_search"] > 0,
               "the inline datastore never ran B1")
@@ -3260,8 +3374,10 @@ def search_phases(torch, np):
     from repro_torch.kernels import _build, ref
 
     dev = torch.device("cuda")
-    wrappers = {name: getattr(kernels, name) for name in (*KERNELS, "select_blocks")}
-    twins = {name: getattr(ref, f"{name}_ref") for name in (*KERNELS, "select_blocks")}
+    wrappers = {name: getattr(kernels, name)
+                for name in (*KERNELS, "select_blocks", "merge_schedule")}
+    twins = {name: getattr(ref, f"{name}_ref")
+             for name in (*KERNELS, "select_blocks", "merge_schedule")}
     max_err = {name: 0.0 for name in (*KERNELS, *B3)}
     b3_bits = {name: True for name in B3}  # int8: every output bit-equal to the twin so far
     engines = ("torch", "kernel", "inline")
@@ -3574,6 +3690,9 @@ def search_phases(torch, np):
     check(onepass_launches["select_blocks"] == 2 * len(engines),
           f"S1 launched {onepass_launches['select_blocks']} times in {2 * len(engines)} "
           f"one-pass searches")
+    check(all(per_engine[e]["merge_schedule"] == (0 if e == "torch" else 2) for e in engines),
+          f"M1 launches per engine {[per_engine[e]['merge_schedule'] for e in engines]}: want "
+          f"one a fused search (kernel, inline) and none on torch's pool path")
     print(f"[main] launches on the one-pass path (2 searches per engine: norm, exact): "
           f"{json.dumps(per_engine)}", flush=True)
 
@@ -3630,10 +3749,21 @@ def search_phases(torch, np):
             err = bins_err(torch, wrappers[name](*a, **kk), twins[name](*a, **kk),
                            atol=atol, edge_ties=True)
             max_err[name] = max(max_err[name], err)
+    # M1 on the main path's bins, plain and with every rule and explain
+    for (engine, (Qn, Qb)), extra in itertools.product(
+            itertools.product(("inline", "kernel"), ((N_QUERIES, Q64), (N_QUERIES_LARGE, Q1k))),
+            ({}, {"termination": Termination(), "with_explain": True})):
+        a, k = capture_calls(kernels, wrappers, "merge_schedule",
+                             lambda: search_batch_fixed(index, Qb, engine=engine, **kw, **extra))
+        check(merge_equal(torch, wrappers["merge_schedule"](*a, **k),
+                          twins["merge_schedule"](*a, **k)),
+              f"M1 ({engine}, Q = {Qn}, {sorted(extra)}): differs from its twin on the main "
+              f"path's bins")
     torch.cuda.synchronize()
     print(f"[main] ok: kernels agree with their twins on the main path's inputs at Q = "
           f"{N_QUERIES} and {N_QUERIES_LARGE} (norm form atol 4e-6 x the norms, {scale:.1f} "
-          f"at the last, exact form 1e-5); max |err| {max_err} "
+          f"at the last, exact form 1e-5); max |err| {max_err}; M1 equal to its twin on "
+          f"every output "
           f"({phase_s():.1f} s)", flush=True)
 
     # --------------------------------------------------- 4. multi-pass path
@@ -4205,6 +4335,8 @@ def search_phases(torch, np):
 
     select_times(torch, np, kernels, ref, records,  # S1 at the cells' shapes
                  onepass_launches["select_blocks"])
+    merge_times(torch, np, kernels, ref, records,  # M1 at the cells' shapes
+                onepass_launches["merge_schedule"])
 
     # wall times: for each batch, engines in turns, each path timed alone
     wall = {}
@@ -4614,8 +4746,9 @@ def search_phases(torch, np):
             check(all(t.done and not t.cached for t in tickets),
                   f"service ({engine}, depth {depth}): a ticket is not done, or cached")
             n_batches = len(svc.batch_log)
-            check(launched[fused_of[engine]] == launched["select_blocks"] == n_batches
-                  and sum(launched.values()) == 2 * n_batches,
+            check(launched[fused_of[engine]] == launched["select_blocks"]
+                  == launched["merge_schedule"] == n_batches
+                  and sum(launched.values()) == 3 * n_batches,
                   f"service ({engine}, depth {depth}): launches {launched} for "
                   f"{n_batches} batches")
             shapes = check_tickets(svc, tickets, f"{engine}, depth {depth}")
@@ -4635,8 +4768,8 @@ def search_phases(torch, np):
               f"service ({engine}): no batch was issued while another was in flight")
     print(f"[service] {N_QUERIES_LARGE} queries one at a time (chunks {SVC_CHUNKS}), "
           f"batch shapes {SVC_SHAPES}: every ticket bit-equal to Collection.search on its "
-          f"padded batch (all four shapes), depth 0 == depth 2, one B1/B2 and one S1 launch "
-          f"per batch, no host sync in the issue stage at depth 2 (set_sync_debug_mode): "
+          f"padded batch (all four shapes), depth 0 == depth 2, one B1/B2, one S1 and one M1 "
+          f"launch per batch, no host sync in the issue stage at depth 2 (set_sync_debug_mode): "
           f"{json.dumps(svc_numbers)}", flush=True)
 
     # QPS and ticket latency: after a warm pass per engine (the first batch

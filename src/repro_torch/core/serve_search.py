@@ -9,7 +9,8 @@ schedule, so the search
      overlap test plus the M smallest MINDIST per table, kernel S1);
   3. verifies every selected slot once, emitting its distance and its
      window halfwidth ``hw = max_k |p_k - g_k|``;
-  4. merges, per step, only the slots newly admitted at that step.
+  4. merges, per step, only the slots newly admitted at that step (on
+     the fused engines the whole schedule in one launch, kernel M1).
 
 Three verify engines:
   * ``torch``  — plain PyTorch gather + verify into a (Q, C) pool, merged
@@ -36,6 +37,7 @@ baseline of its speedup.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -44,8 +46,17 @@ from .. import kernels
 from ..device import as_tensor, full_fp32, resolve_device, upload
 from ..obs.trace import get_tracer
 from .index import DBLSHIndex
-from ..kernels.ref import pool_d2, slot_d2, take_fill
-from .query import first_of_group, lexsort, merge_dedup_topk
+from ..kernels.ref import (
+    TERM_C1,
+    TERM_C2,
+    TERM_EXHAUSTED,
+    merge_dedup_topk,
+    merge_schedule_ref,
+    pool_d2,
+    slot_d2,
+    take_fill,
+)
+from .query import first_of_group, lexsort
 
 __all__ = [
     "Termination",
@@ -64,12 +75,6 @@ __all__ = [
 
 ENGINES = ("torch", "kernel", "inline")
 DTYPES = ("fp32", "bf16", "int8")
-
-#: ``explain["term_cause"]`` codes: why a query's schedule stopped
-#: advancing.  C2 wins ties with C1 on the same step, as in the order of
-#: the done-mask updates.
-TERM_EXHAUSTED, TERM_C1, TERM_C2 = 0, 1, 2
-
 
 def validate_engine(engine: str) -> str:
     if engine not in ENGINES:
@@ -289,18 +294,6 @@ def _rerank_bins(index: DBLSHIndex, Q, bins_d, bins_i):
     return torch.where(valid, d2, torch.inf)
 
 
-def _masked_delta_merge(best_d, best_i, delta, d2, ci, done, n: int, k: int):
-    """One schedule-step merge: fold the newly admitted delta slice into
-    the running top-k, with finished queries frozen.  The reference skips
-    the merge when the delta is empty batch-wide; merging an all-masked
-    delta is the identity, and testing for it here would cost a host
-    sync per step, so the merge always runs."""
-    nd, ni = merge_dedup_topk(best_d, best_i, torch.where(delta, d2, torch.inf),
-                              ci, n, k)
-    frozen = done[:, None]
-    return torch.where(frozen, best_d, nd), torch.where(frozen, best_i, ni)
-
-
 def search_batch_fixed(
     index: DBLSHIndex,
     Q,
@@ -356,6 +349,8 @@ def search_batch_fixed(
     p = index.params
     validate_dtype(dtype, p, exact)
     _check_engine_index(index, engine, device, dtype)
+    if steps < 1:
+        raise ValueError(f"steps={steps}: the schedule runs at least one radius")
     with_stats = with_stats or with_explain
     k = k or p.k
     n, nb = index.n, index.nb
@@ -379,28 +374,7 @@ def search_batch_fixed(
         offs = (torch.arange(L, dtype=torch.int32, device=dev) * nb)[:, None, None]
         blk_q = torch.where(blk < nb, blk + offs, L * nb).transpose(0, 1)
         blk_q = blk_q.reshape(Qn, L * M).contiguous()
-        bhw_q = bhw.transpose(0, 1).reshape(Qn, L * M)
-
-    # verify once: the fused bins (kernels B1/B2, B3 when quantized; every
-    # quantized dtype) or the (Qn, C) pool (the 'torch' fp32 path)
-    quant = dtype != "fp32"
-    use_bins = engine in ("kernel", "inline") or quant
-    ks = 4 * k if quant else k  # quantized: a top-4k shortlist per bin
-    if use_bins or with_explain:
-        # staged through pinned memory: a pageable copy would make the
-        # host wait for the card here, and the search must not wait
-        halves_t = upload(np.array(halves, np.float32), dev)
-    with tr.stage("dblsh.verify"):
-        if use_bins:
-            bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,
-                                                  exact, dtype, ks)
-            if quant:
-                bins_d = _rerank_bins(index, Q, bins_d, bins_i)
-            # C1's admitted count at step j is the slots of bins 0..j
-            cum_adm = torch.cumsum(bin_cnt, dim=1)
-        else:
-            ci = take_fill(index.ids_blocks.reshape(L * nb, B), blk_q, n).reshape(Qn, -1)
-            d2, hw = _gather_pool(index, blk_q, G, Q, "torch", exact)
+        bhw_q = bhw.transpose(0, 1).reshape(Qn, L * M).contiguous() if with_stats else None
 
     c1_thr = None
     if termination is not None and termination.use_c1:
@@ -408,80 +382,72 @@ def search_batch_fixed(
     use_c2 = termination is None or termination.use_c2
     early_exit = termination is not None and termination.early_exit
 
-    best_d = torch.full((Qn, k), torch.inf, device=dev)
-    best_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
-    done = torch.zeros((Qn,), dtype=torch.bool, device=dev)
-    radius_steps = torch.zeros((Qn,), dtype=torch.int32, device=dev)
-    candidates = torch.zeros((Qn,), dtype=torch.int32, device=dev)
-    if with_explain:
-        step_slots = torch.zeros((Qn, steps), dtype=torch.int32, device=dev)
-        term_cause = torch.full((Qn,), TERM_EXHAUSTED, dtype=torch.int32, device=dev)
-        final_radius = torch.zeros((Qn,), dtype=torch.float32, device=dev)
+    # verify once: the fused bins (kernels B1/B2, B3 when quantized; every
+    # quantized dtype) or the (Qn, C) pool (the 'torch' fp32 path)
+    quant = dtype != "fp32"
+    use_bins = engine in ("kernel", "inline") or quant
+    ks = 4 * k if quant else k  # quantized: a top-4k shortlist per bin
+    # per step the half width, C2's bound and the radius
+    sched_h = torch.from_numpy(np.array([halves, [_c2_bound(p, r) for r in radii], radii],
+                                        np.float32))
+    if use_bins or with_explain:
+        # staged through pinned memory: a pageable copy would make the host
+        # wait for the card here, and the search must not wait
+        sched = upload(sched_h, dev)
+        halves_t = sched[0]
+    with tr.stage("dblsh.verify"):
+        if use_bins:
+            bins_d, bins_i, bin_cnt = _fused_bins(index, blk_q, G, Q, halves_t, engine,
+                                                  exact, dtype, ks)
+            if quant:
+                bins_d = _rerank_bins(index, Q, bins_d, bins_i)
+            # C1's admitted count at step j is the slots of bins 0..j
+            cum_adm = torch.cumsum(bin_cnt, dim=1) if c1_thr is not None else None
+        else:
+            ci = take_fill(index.ids_blocks.reshape(L * nb, B), blk_q, n).reshape(Qn, -1)
+            d2, hw = _gather_pool(index, blk_q, G, Q, "torch", exact)
 
-    def mark(fired, cause, r):
-        """Fold one rule's firing into the done mask (and the explain
-        record: the first rule to fire names the cause)."""
-        nonlocal done, term_cause, final_radius
-        if with_explain:
-            newly = fired & ~done
-            term_cause = torch.where(newly, cause, term_cause)
-            final_radius = torch.where(newly, float(r), final_radius)
-        done = done | fired
-
-    prev_half = -np.inf
+    kw = dict(k=k, n=n, B=B, c1_thr=c1_thr, use_c2=use_c2, early_exit=early_exit,
+              with_stats=with_stats, with_explain=with_explain)
     with tr.stage("dblsh.merge") as merge_span:
-        ran = syncs = 0  # steps merged, host syncs made (counted, not waited on)
-        for j in range(steps):
-            # early exit: stop once every query is done.  Reading the mask
-            # is one host sync per step; done queries are frozen, so the
-            # exit never changes a result
-            if early_exit and j > 0:
-                syncs += 1
-                if bool(done.all()):
-                    break
-            ran += 1
-            half = float(halves[j])
-            if with_stats:
-                active = ~done
-                radius_steps += active.to(torch.int32)
-                newly = (bhw_q <= half) & (bhw_q > prev_half)
-                n_slots = torch.where(active, newly.sum(dim=1, dtype=torch.int32) * B, 0)
-                candidates += n_slots
-                if with_explain:
-                    step_slots[:, j] = n_slots
-            # on the fused path the step-j delta IS bin j
-            if use_bins:
-                cd, cids = bins_d[:, j], bins_i[:, j]
-                best_d, best_i = _masked_delta_merge(
-                    best_d, best_i, torch.isfinite(cd), cd, cids, done, n, k)
-            else:
-                delta = (hw <= half) & (hw > prev_half)
-                best_d, best_i = _masked_delta_merge(
-                    best_d, best_i, delta, d2, ci, done, n, k)
-            # C2: the k-th best within c·r certifies the answer
-            if use_c2:
-                mark(best_d[:, k - 1] <= _c2_bound(p, radii[j]), TERM_C2, radii[j])
-            # C1: admitted slots with a finite distance (verified work)
-            if c1_thr is not None:
-                if use_bins:
-                    n_adm = cum_adm[:, j]
-                else:
-                    n_adm = ((hw <= half) & torch.isfinite(d2)).sum(dim=1)
-                mark(n_adm >= c1_thr, TERM_C1, radii[j])
-            prev_half = half
+        if use_bins and bins_d.is_cuda:
+            # the whole schedule in one launch (kernel M1): the host reads
+            # nothing, early exit included
+            best_d, best_i, stats = kernels.merge_schedule(bins_d, bins_i, bhw_q, cum_adm,
+                                                           sched, **kw)
+            span = {"steps": steps, "syncs": 0, "kernel": 1}
+        else:
+            # the twin's step loop: on the CPU, and on the 'torch' fp32
+            # engine's (Qn, C) pool, whose bin j is the pool's slots newly
+            # inside step j's window
+            if not use_bins:
+                bins_d, bins_i, cum_adm = _pool_bins(d2, hw, ci, sched_h[0].tolist(),
+                                                     c1_thr is not None)
+            best_d, best_i, stats, span = merge_schedule_ref(bins_d, bins_i, bhw_q, cum_adm,
+                                                             sched_h, **kw)
         if merge_span:
-            merge_span.set(steps=ran, syncs=syncs)
+            merge_span.set(**span)
 
     out = (torch.sqrt(best_d), best_i)
     if with_stats:
-        out += ({"radius_steps": radius_steps, "candidates": candidates},)
+        out += ({"radius_steps": stats["radius_steps"], "candidates": stats["candidates"]},)
     if with_explain:
-        # queries still running at the end stopped at the final radius
-        final_radius = torch.where(term_cause == TERM_EXHAUSTED, float(radii[-1]),
-                                   final_radius)
-        out += ({"step_half": halves_t, "step_slots": step_slots,
-                 "term_cause": term_cause, "final_radius": final_radius},)
+        out += ({"step_half": halves_t, "step_slots": stats["step_slots"],
+                 "term_cause": stats["term_cause"], "final_radius": stats["final_radius"]},)
     return out
+
+
+def _pool_bins(d2, hw, ci, halves, with_c1: bool):
+    """The (Qn, C) pool as per-step bins: (bins_d, bins_i) (Qn, S, C),
+    bin j the pool's slots with ``halves[j-1] < hw <= halves[j]`` (the
+    rest +inf), and C1's admitted count (Qn, S) when ``with_c1``: the
+    finite slots with hw <= halves[j], since the windows nest."""
+    edges = [-math.inf, *halves]
+    delta = torch.stack([(hw <= hi) & (hw > lo) for lo, hi in zip(edges, edges[1:])], dim=1)
+    bins_d = torch.where(delta, d2[:, None], torch.inf)
+    bins_i = ci[:, None].expand(bins_d.shape)
+    cum_adm = torch.isfinite(bins_d).sum(dim=2).cumsum(dim=1) if with_c1 else None
+    return bins_d, bins_i, cum_adm
 
 
 def _merge_dedup_topk_lexsort(run_d, run_i, new_d, new_i, n: int, k: int):
@@ -619,7 +585,10 @@ class PendingSearch:
         dists, ids = pending.result()        # the first host sync
 
     On the CPU the work is done when the call returns: ``ready()`` is
-    always true.
+    always true.  On the card the fused engines' merge (kernel M1) reads
+    nothing on the host, early exit included: each query stops at its own
+    done step.  Only the 'torch' fp32 engine's merge loop still reads the
+    done mask once a step under ``termination.early_exit``.
     """
 
     __slots__ = ("dists", "ids", "stats", "explain", "_event")
@@ -665,9 +634,10 @@ def search_batch_fixed_dispatch(
     Same arguments and numerics as :func:`search_batch_fixed` (it runs
     that very call, so its results are bit-equal to the synchronous
     path); ``result()`` of the returned :class:`PendingSearch` is the only
-    wait.  With ``termination.early_exit`` the call itself reads the done
-    mask once per step, so it returns only after the schedule's last step
-    was enqueued."""
+    wait on the fused engines.  On the 'torch' fp32 engine with
+    ``termination.early_exit`` the call itself reads the done mask once
+    per step, so it returns only after the schedule's last step was
+    enqueued."""
     out = search_batch_fixed(
         index, Q, k=k, r0=r0, steps=steps, engine=engine, with_stats=with_stats,
         exact=exact, termination=termination, with_explain=with_explain, dtype=dtype,

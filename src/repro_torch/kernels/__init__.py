@@ -8,6 +8,7 @@ from .ops import (
     fused_cand_search,
     fused_window_search,
     launches,
+    merge_schedule,
     mode_launches,
     pairwise_l2,
     reset_launches,
@@ -22,6 +23,7 @@ __all__ = [
     "fused_cand_search",
     "fused_window_search",
     "launches",
+    "merge_schedule",
     "mode_launches",
     "pairwise_l2",
     "reset_launches",

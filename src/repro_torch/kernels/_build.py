@@ -23,13 +23,13 @@ __all__ = ["build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = tuple(_CSRC / f for f in ("fused_search.cu", "window_verify.cu", "dist.cu",
-                                      "pairwise_l2.cu", "select.cu"))
+                                      "pairwise_l2.cu", "select.cu", "merge.cu"))
 _HEADERS = (_CSRC / "search_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # name: (argtypes, restype)
     "fused_search_smem_bytes": ((_I,) * 7, ctypes.c_size_t),
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "pairwise_l2_launch": ((_P,) * 3 + (_I,) * 4 + (_P,), _I),
     "select_scratch_keys": ((_I,) * 5, ctypes.c_size_t),
     "select_blocks_launch": ((_P,) * 3 + (_F,) + (_P,) * 3 + (_I,) * 5 + (_P,), _I),
+    "merge_smem_bytes": ((_I, _I), ctypes.c_size_t),
+    "merge_schedule_launch": ((_P,) * 12 + (_LL,) + (_I,) * 8 + (_P,), _I),
 }
 
 _lib: ctypes.CDLL | None = None

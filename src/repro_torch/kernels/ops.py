@@ -23,6 +23,7 @@ from .ref import (
     candidate_verify_ref,
     fused_cand_search_ref,
     fused_window_search_ref,
+    merge_schedule_ref,
     pairwise_l2_ref,
     select_blocks_ref,
     window_dist_ref,
@@ -40,6 +41,7 @@ __all__ = [
     "candidate_dist",
     "pairwise_l2",
     "select_blocks",
+    "merge_schedule",
     "launches",
     "mode_launches",
     "reset_launches",
@@ -54,7 +56,7 @@ _X_DTYPES = {"norm": torch.float32, "exact": torch.float32, "bf16": torch.bfloat
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fused_window_search": 0, "fused_cand_search": 0, "window_verify": 0,
             "candidate_verify": 0, "window_dist": 0, "candidate_dist": 0, "pairwise_l2": 0,
-            "select_blocks": 0}
+            "select_blocks": 0, "merge_schedule": 0}
 #: the fused kernels' launches per distance mode (their sum is ``launches``)
 mode_launches = {name: dict.fromkeys(_MODES, 0)
                  for name in ("fused_window_search", "fused_cand_search")}
@@ -559,3 +561,98 @@ def select_blocks(mbr_lo, mbr_hi, g, half: float, *, M: int):
     _raise_on(lib, err, "select_blocks")
     launches["select_blocks"] += 1
     return blk, bhw
+
+
+@functools.lru_cache(maxsize=256)
+def _merge_smem(k: int, kb: int) -> int:
+    """Shared memory one block of M1 asks for at these widths: a function
+    of the widths alone, asked once."""
+    return _build.load().merge_smem_bytes(k, kb)
+
+
+def merge_schedule(bins_d, bins_i, bhw, cum_adm, sched, *, k: int, n: int, B: int,
+                   c1_thr=None, use_c2: bool = True, early_exit: bool = False,
+                   with_stats: bool = False, with_explain: bool = False):
+    """The one-pass search's whole merge schedule in one launch (kernel
+    M1): per query and step, the stats, the dedup'd top-k merge of the
+    step's bin and the C2 then C1 done marks, a done query frozen.
+
+    Args:
+      bins_d, bins_i: (Q, S, kb) f32 / int32, bin j the (d2, id) pairs of
+        the slots first admitted at step j, in any order (non-finite d2
+        never enter).
+      bhw: (Q, T) f32 the selected blocks' window halfwidths, given
+        exactly when ``with_stats`` (or ``with_explain``) is.
+      cum_adm: (Q, S) int64 admitted slots of bins 0..j, given exactly
+        when ``c1_thr`` (C1's budget) is.
+      sched: (3, S) f32, per step the half width, C2's bound (c·r)² and
+        the radius.
+      k: top-k; n: the id of unfilled slots; B: slots a block; use_c2:
+        the C2 rule; early_exit: the twin's host exit once every query
+        is done (on the card each query stops at its own done step and
+        the host reads nothing).
+
+    Returns (best_d, best_i, stats): (Q, k) squared distances ascending
+    and int32 ids (``n`` unfilled), and the stats of
+    :func:`ref.merge_schedule_ref` (None without ``with_stats``).  Every
+    output is the twin's, bit for bit.
+    """
+    with_stats = with_stats or with_explain
+    tensors = [t for t in (bins_d, bins_i, bhw, cum_adm, sched) if t is not None]
+    cuda = _on_cuda(*tensors)
+    if bins_d.dim() != 3:
+        raise ValueError(f"bins_d: {bins_d.dim()}-d, expected (Q, S, kb)")
+    Qn, S, kb = bins_d.shape
+    if k < 1 or S < 1 or kb < 1:
+        raise ValueError(f"merge_schedule: k={k}, S={S} or kb={kb} below 1")
+    if (bhw is None) == with_stats:
+        raise ValueError("bhw is given exactly when the stats are asked for")
+    if (cum_adm is None) != (c1_thr is None):
+        raise ValueError("cum_adm is given exactly with c1_thr")
+    f32, i32 = torch.float32, torch.int32
+    _check("bins_d", bins_d, f32, (Qn, S, kb))
+    _check("bins_i", bins_i, i32, (Qn, S, kb))
+    _check("sched", sched, f32, (3, S))
+    if bhw is not None:
+        if bhw.dim() != 2:
+            raise ValueError(f"bhw: {bhw.dim()}-d, expected (Q, T)")
+        _check("bhw", bhw, f32, (Qn, bhw.shape[1]))
+    if cum_adm is not None:
+        _check("cum_adm", cum_adm, torch.int64, (Qn, S))
+    _check_k(k, n)
+    kw = dict(k=k, n=n, B=B, c1_thr=c1_thr, use_c2=use_c2, early_exit=early_exit,
+              with_stats=with_stats, with_explain=with_explain)
+    if not cuda:
+        return merge_schedule_ref(bins_d, bins_i, bhw, cum_adm, sched, **kw)[:3]
+
+    smem = _merge_smem(k, kb)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"merge_schedule: k={k}, kb={kb} need {smem} bytes of shared "
+                         f"memory; the kernel takes at most {_MAX_SMEM}")
+    dev = bins_d.device
+    best_d = torch.empty((Qn, k), dtype=f32, device=dev)
+    best_i = torch.empty((Qn, k), dtype=i32, device=dev)
+    stats = None
+    if with_stats:
+        stats = {"radius_steps": torch.empty((Qn,), dtype=i32, device=dev),
+                 "candidates": torch.empty((Qn,), dtype=i32, device=dev)}
+    if with_explain:
+        stats.update(step_slots=torch.empty((Qn, S), dtype=i32, device=dev),
+                     term_cause=torch.empty((Qn,), dtype=i32, device=dev),
+                     final_radius=torch.empty((Qn,), dtype=f32, device=dev))
+    if Qn == 0:
+        return best_d, best_i, stats
+    st = stats or {}
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.merge_schedule_launch(
+            *map(_ptr, (bins_d, bins_i, bhw, cum_adm, sched, best_d, best_i,
+                        st.get("radius_steps"), st.get("candidates"), st.get("step_slots"),
+                        st.get("term_cause"), st.get("final_radius"))),
+            0 if c1_thr is None else int(c1_thr), int(use_c2), Qn, S, kb, k,
+            0 if bhw is None else bhw.shape[1], B, n,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(lib, err, "merge_schedule")
+    launches["merge_schedule"] += 1
+    return best_d, best_i, stats

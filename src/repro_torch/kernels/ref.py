@@ -8,12 +8,20 @@ against its twin on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = [
     "QUANT_MODES",
+    "TERM_EXHAUSTED",
+    "TERM_C1",
+    "TERM_C2",
     "topk_rounds",
     "merge_topk",
+    "merge_dedup_topk",
+    "masked_delta_merge",
+    "merge_schedule_ref",
     "quantize_query",
     "slot_d2",
     "pool_d2",
@@ -32,6 +40,10 @@ __all__ = [
 
 IMAX = 2**31 - 1
 QUANT_MODES = ("bf16", "int8")
+#: ``explain["term_cause"]`` codes: why a query's schedule stopped
+#: advancing.  C2 wins ties with C1 on the same step, as in the order of
+#: the done-mask updates.
+TERM_EXHAUSTED, TERM_C1, TERM_C2 = 0, 1, 2
 
 
 def topk_rounds(cd: torch.Tensor, ci: torch.Tensor, k: int, fill_id: int):
@@ -64,6 +76,131 @@ def merge_topk(cd, ci, out_d, out_i, k: int):
         torch.cat([out_i, ci], dim=-1).to(torch.int32),
         k, fill_id=IMAX,
     )
+
+
+def merge_dedup_topk(run_d, run_i, new_d, new_i, n: int, k: int):
+    """Batched dedup'd top-k merge via k rounds of min-select.
+
+    Each round takes the smallest distance, the smallest id among the
+    entries at that distance, and then drops every entry equal to the
+    selected (dist, id) pair — cross-table duplicates of one point carry
+    identical pairs, so that is exact dedup.  The result is the k
+    lexicographically smallest distinct (dist, id) pairs with finite
+    dist, ascending.
+
+    Args:
+      run_d/run_i: (Q, a) running top-k (ascending, +inf / ``n`` padded).
+      new_d/new_i: (Q, b) fresh candidates (masked slots +inf).
+      n: invalid-id sentinel; k: top-k.
+
+    Returns: (Q, k) distances ascending, (Q, k) int32 ids (``n`` when
+    unfilled).
+    """
+    cd = torch.cat([run_d, new_d], dim=1)
+    ci = torch.cat([run_i.to(torch.int32), new_i.to(torch.int32)], dim=1)
+    return topk_rounds(cd, ci, k, fill_id=n)
+
+
+def masked_delta_merge(best_d, best_i, delta, d2, ci, done, n: int, k: int):
+    """One schedule-step merge: fold the newly admitted delta slice into
+    the running top-k, with finished queries frozen.  The reference skips
+    the merge when the delta is empty batch-wide; merging an all-masked
+    delta is the identity, and testing for it here would cost a host
+    sync per step, so the merge always runs."""
+    nd, ni = merge_dedup_topk(best_d, best_i, torch.where(delta, d2, torch.inf),
+                              ci, n, k)
+    frozen = done[:, None]
+    return torch.where(frozen, best_d, nd), torch.where(frozen, best_i, ni)
+
+
+def merge_schedule_ref(bins_d, bins_i, bhw, cum_adm, sched, *, k: int, n: int, B: int,
+                       c1_thr=None, use_c2: bool = True, early_exit: bool = False,
+                       with_stats: bool = False, with_explain: bool = False):
+    """Twin of the merge schedule kernel (M1): the one-pass search's
+    per-step merges of its fused bins, with the stats and the C2 then C1
+    done marks, step by step in eager PyTorch.
+
+    bins_d/bins_i: (Q, S, kb) bin j's (d2, id) pairs, the slots first
+    admitted at step j (non-finite d2 never enter); bhw: (Q, T) the
+    selected blocks' window halfwidths (``with_stats``), else None;
+    cum_adm: (Q, S) int64 admitted slots of bins 0..j, given with
+    ``c1_thr`` (C1's budget); sched: (3, S) f32 per step the half width,
+    C2's bound (c·r)² and the radius; k, n, B: top-k, the id of unfilled
+    slots, slots a block.  ``early_exit`` reads the done mask on the host
+    before every step but the first and stops once every query is done;
+    done queries are frozen, so the exit changes no result.
+
+    Returns (best_d, best_i, stats, span): (Q, k) squared distances
+    ascending and int32 ids (``n`` unfilled); stats None, or
+    {"radius_steps", "candidates"} (Q,) int32 and, with ``with_explain``,
+    "step_slots" (Q, S) int32, "term_cause" (Q,) int32 and "final_radius"
+    (Q,) f32; span {"steps": steps merged, "syncs": host reads of the done
+    mask}."""
+    with_stats = with_stats or with_explain
+    Qn, steps = bins_d.shape[:2]
+    dev = bins_d.device
+    halves, c2_bounds, radii = sched.tolist()
+    best_d = torch.full((Qn, k), torch.inf, device=dev)
+    best_i = torch.full((Qn, k), n, dtype=torch.int32, device=dev)
+    done = torch.zeros((Qn,), dtype=torch.bool, device=dev)
+    radius_steps = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+    candidates = torch.zeros((Qn,), dtype=torch.int32, device=dev)
+    if with_explain:
+        step_slots = torch.zeros((Qn, steps), dtype=torch.int32, device=dev)
+        term_cause = torch.full((Qn,), TERM_EXHAUSTED, dtype=torch.int32, device=dev)
+        final_radius = torch.zeros((Qn,), dtype=torch.float32, device=dev)
+
+    def mark(fired, cause, r):
+        """Fold one rule's firing into the done mask (and the explain
+        record: the first rule to fire names the cause)."""
+        nonlocal done, term_cause, final_radius
+        if with_explain:
+            newly = fired & ~done
+            term_cause = torch.where(newly, cause, term_cause)
+            final_radius = torch.where(newly, float(r), final_radius)
+        done = done | fired
+
+    prev_half = -math.inf
+    ran = syncs = 0  # steps merged, host syncs made (counted, not waited on)
+    for j in range(steps):
+        # early exit: stop once every query is done.  Reading the mask
+        # is one host sync per step; done queries are frozen, so the
+        # exit never changes a result
+        if early_exit and j > 0:
+            syncs += 1
+            if bool(done.all()):
+                break
+        ran += 1
+        half = halves[j]
+        if with_stats:
+            active = ~done
+            radius_steps += active.to(torch.int32)
+            newly = (bhw <= half) & (bhw > prev_half)
+            n_slots = torch.where(active, newly.sum(dim=1, dtype=torch.int32) * B, 0)
+            candidates += n_slots
+            if with_explain:
+                step_slots[:, j] = n_slots
+        # the step-j delta IS bin j
+        cd, cids = bins_d[:, j], bins_i[:, j]
+        best_d, best_i = masked_delta_merge(
+            best_d, best_i, torch.isfinite(cd), cd, cids, done, n, k)
+        # C2: the k-th best within c·r certifies the answer
+        if use_c2:
+            mark(best_d[:, k - 1] <= c2_bounds[j], TERM_C2, radii[j])
+        # C1: admitted slots with a finite distance (verified work)
+        if c1_thr is not None:
+            mark(cum_adm[:, j] >= c1_thr, TERM_C1, radii[j])
+        prev_half = half
+
+    stats = None
+    if with_stats:
+        stats = {"radius_steps": radius_steps, "candidates": candidates}
+    if with_explain:
+        # queries still running at the end stopped at the final radius
+        final_radius = torch.where(term_cause == TERM_EXHAUSTED, float(radii[-1]),
+                                   final_radius)
+        stats.update(step_slots=step_slots, term_cause=term_cause, final_radius=final_radius)
+    return best_d, best_i, stats, {"steps": ran, "syncs": syncs}
 
 
 def quantize_query(q: torch.Tensor, mode: str):

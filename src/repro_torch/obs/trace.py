@@ -37,7 +37,9 @@ Design constraints (DESIGN.md §10):
   ``rows``, ``k``, ``steps``, ``engine``, ``dtype``) is the parent of
   ``dblsh.project``, ``dblsh.select``, ``dblsh.verify`` and
   ``dblsh.merge`` (args ``steps`` run and the host ``syncs`` early exit
-  made, 0 without it).
+  made, 0 without it; where kernel M1 runs the whole schedule in one
+  launch, on the card's fused engines, ``steps`` is the schedule's
+  length, ``syncs`` 0 and ``kernel`` 1).
 * **Bounded.**  The event buffer is a ring (``maxlen``); a long-lived
   serving process can leave tracing on without growing memory.
 

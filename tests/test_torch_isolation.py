@@ -273,6 +273,7 @@ def test_cpu_tensors_never_launch_kernels():
     pairwise_l2(data[:5], data)
     assert set(launches) == {"fused_window_search", "fused_cand_search",
                              "window_verify", "candidate_verify", "window_dist",
-                             "candidate_dist", "pairwise_l2", "select_blocks"}
+                             "candidate_dist", "pairwise_l2", "select_blocks",
+                             "merge_schedule"}
     assert not any(launches.values()), launches
     assert not any(c for counts in mode_launches.values() for c in counts.values())

@@ -23,6 +23,7 @@ from repro_torch.kernels import (  # noqa: E402
     fused_cand_search,
     fused_window_search,
     launches,
+    merge_schedule,
     pairwise_l2,
     select_blocks,
     window_dist,
@@ -1467,3 +1468,297 @@ def test_select_blocks_cpu_is_the_twin():
     want = twin.select_blocks_ref(*args, M=5)
     assert launches == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------- M1
+
+MERGE_KINDS = ("ties", "dups", "allinf", "nonfinite", "mixed")
+# at the kernel's level: (c1_thr, use_c2, early_exit); "c2" is what a
+# search with termination=None runs
+MERGE_TERMS = {"neither": (None, False, False), "c1": (60, False, False),
+               "c2": (None, True, False), "both": (60, True, False),
+               "early_exit": (60, True, True)}
+MERGE_STATS = {"plain": (False, False), "stats": (True, False), "explain": (True, True)}
+
+
+def _merge_case(seed, Q, S, k, kb, kind="mixed"):
+    """Bins, block halfwidths, admitted counts and a schedule for the merge
+    schedule, from numpy.  Bins are in no order; distances lie on a grid of
+    quarters and ids in [0, 4(k + kb)), so equal distances at different ids
+    are common (``ties``).  ``dups``: the same pair in every bin of a query
+    and twice in each bin; ``allinf``: bin 0 and every third bin all +inf /
+    ``n``, and one query all +inf; ``nonfinite``: NaN, -inf, -0, +0 and
+    negative distances; ``mixed``: all of them.  The C2 bounds and C1's
+    budget fire at steps spread over the schedule."""
+    rng = np.random.default_rng(seed)
+    n = 100_000
+    d = (rng.integers(0, 32, (Q, S, kb)) / 4).astype(np.float32)
+    i = rng.integers(0, 4 * (k + kb), (Q, S, kb)).astype(np.int32)
+    if kind in ("dups", "mixed"):
+        d[:, :, 0], i[:, :, 0] = d[:, :1, 0], i[:, :1, 0]
+        d[:, :, -1], i[:, :, -1] = d[:, :, 0], i[:, :, 0]
+    if kind in ("allinf", "mixed"):
+        d[:, ::3], i[:, ::3] = np.inf, n
+        d[-1], i[-1] = np.inf, n
+        masked = rng.random((Q, S, kb)) < 0.2
+        d[masked], i[masked] = np.inf, n
+    if kind in ("nonfinite", "mixed"):
+        u = rng.random((Q, S, kb))
+        d[u < 0.04] = np.nan
+        d[(u >= 0.04) & (u < 0.08)] = -np.inf
+        d[(u >= 0.08) & (u < 0.14)] = -0.0
+        d[(u >= 0.14) & (u < 0.2)] = 0.0
+        d[(u >= 0.2) & (u < 0.23)] = -1.25
+    bhw = rng.uniform(0, 4, (Q, 25)).astype(np.float32)
+    bhw[rng.random((Q, 25)) < 0.2] = np.inf
+    cum = np.cumsum(rng.integers(0, 30, (Q, S)), axis=1).astype(np.int64)
+    # the half widths grow by 1.5 a step up to step 60, then stay (no overflow)
+    halves = (np.float32(0.4) * np.float32(1.5) ** np.minimum(np.arange(S), 60)).astype(
+        np.float32)
+    c2 = np.linspace(0.5, 6.0, S).astype(np.float32)
+    sched = np.stack([halves, c2, 2 * halves]).astype(np.float32)
+    return d, i, bhw, cum, sched, n
+
+
+def _merge_on(case, device, term="both", stats="explain", *, k, B=64):
+    """(args, kwargs) of a merge_schedule call on ``device``."""
+    d, i, bhw, cum, sched, n = case
+    c1_thr, use_c2, early_exit = MERGE_TERMS[term]
+    with_stats, with_explain = MERGE_STATS[stats]
+    t = [torch.from_numpy(x).to(device) for x in (d, i, bhw, cum, sched)]
+    args = (t[0], t[1], t[2] if with_stats else None, None if c1_thr is None else t[3], t[4])
+    return args, dict(k=k, n=n, B=B, c1_thr=c1_thr, use_c2=use_c2, early_exit=early_exit,
+                      with_stats=with_stats, with_explain=with_explain)
+
+
+def _assert_merge_equal(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[2] is None) == (want[2] is None)
+    if want[2] is not None:
+        assert got[2].keys() == want[2].keys()
+        for key in want[2]:
+            assert torch.equal(got[2][key], want[2][key]), key
+
+
+def _merge_oracle(case, k, B, term):
+    """The merge schedule written out per query on Python sets: at each
+    step, the k smallest distinct (d2, id) pairs of the running list and
+    the bin's finite entries, sorted; then the C2 and C1 marks."""
+    d, i, bhw, cum, sched, n = case
+    c1_thr, use_c2, _ = MERGE_TERMS[term]
+    Q, S, _ = d.shape
+    out_d, out_i, rs, cands = [], [], [], []
+    for q in range(Q):
+        best, steps_run, cand, prev = [], 0, 0, -np.inf
+        for j in range(S):
+            steps_run += 1
+            cand += int(((bhw[q] <= sched[0, j]) & (bhw[q] > prev)).sum()) * B
+            prev = sched[0, j]
+            pairs = set(best) | {(float(a), int(b)) for a, b in zip(d[q, j], i[q, j])
+                                 if np.isfinite(a)}
+            best = sorted(pairs)[:k]
+            kth = best[k - 1][0] if len(best) == k else np.inf
+            if (use_c2 and kth <= sched[1, j]) or (c1_thr is not None
+                                                   and cum[q, j] >= c1_thr):
+                break
+        best += [(np.inf, n)] * (k - len(best))
+        out_d.append([a for a, _ in best])
+        out_i.append([b for _, b in best])
+        rs.append(steps_run)
+        cands.append(cand)
+    return (np.asarray(out_d, np.float32), np.asarray(out_i, np.int32),
+            np.asarray(rs, np.int32), np.asarray(cands, np.int32))
+
+
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+@pytest.mark.parametrize("term", ["neither", "c1", "c2", "both"])
+@pytest.mark.parametrize("k,kb", [(1, 4), (5, 5), (10, 40)])
+def test_merge_schedule_twin_matches_oracle(kind, term, k, kb):
+    """The twin (the eager loop M1 replaced) against the schedule written
+    out on Python sets: results, radius steps and candidates."""
+    case = _merge_case(k * 31 + kb + len(kind), 9, 5, k, kb, kind)
+    args, kw = _merge_on(case, "cpu", term, "stats", k=k)
+    bd, bi, stats, span = twin.merge_schedule_ref(*args, **kw)
+    want = _merge_oracle(case, k, 64, term)
+    np.testing.assert_array_equal(bd.numpy(), want[0])
+    np.testing.assert_array_equal(bi.numpy(), want[1])
+    np.testing.assert_array_equal(stats["radius_steps"].numpy(), want[2])
+    np.testing.assert_array_equal(stats["candidates"].numpy(), want[3])
+    assert span == {"steps": 5, "syncs": 0}
+
+
+def test_merge_schedule_cpu_is_the_twin():
+    """On CPU tensors the wrapper returns the twin's outputs (and only
+    the tensors: the twin's span args are the search's), under early exit
+    with explain, and counts no launch."""
+    case = _merge_case(3, 9, 5, 10, 10)
+    args, kw = _merge_on(case, "cpu", "early_exit", "explain", k=10)
+    before = dict(launches)
+    got = merge_schedule(*args, **kw)
+    want = twin.merge_schedule_ref(*args, **kw)
+    assert launches == before
+    assert len(got) == 3 and want[3]["syncs"] >= 1
+    _assert_merge_equal(got, want)
+
+
+def _merge_bad_calls(device):
+    """(expected error, call) pairs the wrapper must refuse."""
+    case = _merge_case(5, 4, 3, 5, 5)
+    args, kw = _merge_on(case, device, "both", "stats", k=5)
+    bd, bi, bhw, cum, sched = args
+    return [
+        (TypeError, lambda: merge_schedule(bd.double(), bi, bhw, cum, sched, **kw)),
+        (TypeError, lambda: merge_schedule(bd, bi.long(), bhw, cum, sched, **kw)),
+        (TypeError, lambda: merge_schedule(bd, bi, bhw, cum.int(), sched, **kw)),
+        (ValueError, lambda: merge_schedule(bd, bi[:, :2].contiguous(), bhw, cum, sched, **kw)),
+        (ValueError, lambda: merge_schedule(bd, bi, bhw, cum, sched[:, :2].contiguous(), **kw)),
+        (ValueError, lambda: merge_schedule(bd.transpose(1, 2).contiguous().transpose(1, 2),
+                                            bi, bhw, cum, sched, **kw)),
+        (ValueError, lambda: merge_schedule(bd, bi, None, cum, sched, **kw)),
+        (ValueError, lambda: merge_schedule(bd, bi, bhw, None, sched, **kw)),
+        (ValueError, lambda: merge_schedule(bd, bi, bhw, cum, sched, **dict(kw, c1_thr=None))),
+        (ValueError, lambda: merge_schedule(bd, bi, bhw, cum, sched, **dict(kw, k=0))),
+        (ValueError, lambda: merge_schedule(bd[:, :0].contiguous(), bi[:, :0].contiguous(),
+                                            bhw, cum[:, :0].contiguous(),
+                                            sched[:, :0].contiguous(), **kw)),
+        (ValueError, lambda: merge_schedule(bd[0], bi[0], bhw, cum, sched, **kw)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_merge_schedule_wrapper_checks_cpu(case):
+    """Wrong dtypes, shapes and layouts, stats or C1 inputs given without
+    their flag (or the reverse), k or S below 1: refused before the twin
+    runs, and no launch is counted."""
+    err, call = _merge_bad_calls("cpu")[case]
+    before = dict(launches)
+    with pytest.raises(err):
+        call()
+    assert launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 7, 256, 1024])
+@pytest.mark.parametrize("k,kb", [(1, 1), (1, 4), (10, 10), (10, 40), (32, 32), (32, 128),
+                                  (33, 33), (33, 132), (50, 50), (50, 200), (100, 100),
+                                  (100, 400)])
+def test_merge_schedule_kernel_matches_twin(cuda, Q, k, kb):
+    """M1 against its twin on the card, ``torch.equal`` on every output:
+    k and kb from 1 to 400, the cells' Q and tiny ones, on bins with ties,
+    duplicates, all-inf bins and non-finite and signed-zero distances, C1
+    and C2 both on, with explain."""
+    case = _merge_case(Q * 7 + k + kb, Q, 8, k, kb, "mixed")
+    args, kw = _merge_on(case, cuda, "both", "explain", k=k)
+    before = launches["merge_schedule"]
+    got = merge_schedule(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches["merge_schedule"] == before + 1
+    want = twin.merge_schedule_ref(*args, **kw)
+    assert len(got) == 3
+    _assert_merge_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term", list(MERGE_TERMS))
+@pytest.mark.parametrize("stats", list(MERGE_STATS))
+@pytest.mark.parametrize("k,kb", [(10, 10), (10, 40), (50, 50)])
+def test_merge_schedule_kernel_terminations(cuda, term, stats, k, kb):
+    """Every termination (neither rule, C1, C2, both, early exit) with and
+    without stats and explain, at three widths: equal to the twin."""
+    case = _merge_case(k + kb + len(term) * 13 + len(stats), 256, 8, k, kb, "mixed")
+    args, kw = _merge_on(case, cuda, term, stats, k=k)
+    got = merge_schedule(*args, **kw)
+    want = twin.merge_schedule_ref(*args, **kw)
+    _assert_merge_equal(got, want)
+    if MERGE_STATS[stats][1] and term != "neither":
+        assert bool((got[2]["term_cause"] != 0).any())  # the rules do fire
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+@pytest.mark.parametrize("k,kb", [(10, 10), (50, 200)])
+def test_merge_schedule_kernel_bin_kinds(cuda, kind, k, kb):
+    """Each hard kind of bin alone, at the cells' widths and a quantized
+    shortlist's: equal to the twin."""
+    case = _merge_case(len(kind) + k, 64, 8, k, kb, kind)
+    args, kw = _merge_on(case, cuda, "c2", "explain", k=k)
+    _assert_merge_equal(merge_schedule(*args, **kw), twin.merge_schedule_ref(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,k,kb", [(40, 10, 32), (300, 8, 32), (300, 50, 50)])
+def test_merge_schedule_kernel_long_schedules(cuda, S, k, kb):
+    """Long schedules, Q = 130 (a ragged last block): equal to the
+    twin."""
+    case = _merge_case(S + k, 130, S, k, kb, "mixed")
+    args, kw = _merge_on(case, cuda, "both", "explain", k=k)
+    _assert_merge_equal(merge_schedule(*args, **kw), twin.merge_schedule_ref(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_merge_schedule_wrapper_checks(cuda):
+    """On the card: the CPU checks, operands on two devices, and no launch
+    counted for a refused call."""
+    before = launches["merge_schedule"]
+    for err, call in _merge_bad_calls(cuda):
+        with pytest.raises(err):
+            call()
+    args, kw = _merge_on(_merge_case(5, 4, 3, 5, 5), cuda, k=5)
+    with pytest.raises(ValueError, match="several devices"):
+        merge_schedule(*args[:4], args[4].cpu(), **kw)
+    assert launches["merge_schedule"] == before
+
+
+def _merge_search_index(device, quant_dtype="none"):
+    from repro_torch.core import DBLSHParams, build
+
+    rng = np.random.default_rng(17)
+    data = torch.from_numpy(rng.standard_normal((4096, 16)).astype(np.float32))
+    params = DBLSHParams.derive(n=4096, d=16, k=5, K=6, L=3, inline_vectors=True,
+                                quant_dtype=quant_dtype)
+    proj = torch.from_numpy(rng.standard_normal((params.L, params.K, 16)).astype(np.float32))
+    return build(data.to(device), params, proj_vecs=proj.to(device), device=device), data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("engine", ["inline", "kernel"])
+def test_merge_schedule_on_the_search_path(cuda, engine, dtype, monkeypatch):
+    """A fused search on the card merges through M1, one launch a call, and
+    answers as the same search with the twin merging on the same bins, bit
+    for bit, with every termination and explain; the 'torch' fp32 engine
+    launches none; exact=True stays bit-equal to the multi-pass oracle."""
+    import repro_torch.kernels as kernels_mod
+    from repro_torch.core import Termination, search_batch_fixed, search_batch_fixed_ref
+
+    index, data = _merge_search_index(cuda, "none" if dtype == "fp32" else dtype)
+    Q = data[:33].to(cuda)
+    terms = (None, Termination(), Termination(use_c2=False), Termination(use_c1=False),
+             Termination(early_exit=False))
+    got = []
+    for term in terms:
+        before = launches["merge_schedule"]
+        got.append(search_batch_fixed(index, Q, k=5, r0=0.5, steps=6, engine=engine,
+                                      dtype=dtype, termination=term, with_explain=True,
+                                      device=cuda))
+        assert launches["merge_schedule"] == before + 1
+    monkeypatch.setattr(kernels_mod, "merge_schedule",
+                        lambda *a, **kw: twin.merge_schedule_ref(*a, **kw)[:3])
+    for term, g in zip(terms, got):
+        want = search_batch_fixed(index, Q, k=5, r0=0.5, steps=6, engine=engine, dtype=dtype,
+                                  termination=term, with_explain=True, device=cuda)
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+        for part in (2, 3):
+            for key in want[part]:
+                assert torch.equal(g[part][key], want[part][key]), key
+    monkeypatch.undo()
+    if dtype == "fp32":
+        before = launches["merge_schedule"]
+        search_batch_fixed(index, Q, k=5, r0=0.5, steps=6, engine="torch", device=cuda)
+        assert launches["merge_schedule"] == before
+        d, i = search_batch_fixed(index, Q, k=5, r0=0.5, steps=6, engine=engine, exact=True,
+                                  device=cuda)
+        rd, ri = search_batch_fixed_ref(index, Q, k=5, r0=0.5, steps=6, engine=engine,
+                                        device=cuda)
+        assert torch.equal(d, rd) and torch.equal(i, ri)
+    torch.cuda.synchronize()

@@ -684,6 +684,34 @@ def test_collection_search_records_its_spans(setup, col):
     assert merge.args["syncs"] == min(merge.args["steps"], 5)
 
 
+@pytest.mark.cuda
+def test_search_on_the_card_merges_in_one_launch():
+    """On the card a fused search with a ``Termination()`` (early exit on)
+    merges through kernel M1: ``dblsh.merge`` records the schedule's
+    steps, no host sync and the kernel's mark, and the call makes one
+    ``merge_schedule`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel M1 has no CPU mode")
+    from repro_torch.core import build
+    from repro_torch.kernels import launches
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.standard_normal((2048, 12)).astype(np.float32))
+    params = DBLSHParams.derive(n=2048, d=12, k=8, K=5, L=3, inline_vectors=True)
+    proj = torch.from_numpy(rng.standard_normal((params.L, params.K, 12)).astype(np.float32))
+    col = Collection.from_index(
+        "m1col", build(data.to(dev), params, proj_vecs=proj.to(dev), device=dev))
+    tr = get_tracer()
+    tr.enable()
+    before = launches["merge_schedule"]
+    col.search(data[:16].to(dev), k=8, steps=6, engine="inline", termination=Termination())
+    torch.cuda.synchronize()
+    assert launches["merge_schedule"] == before + 1
+    merge = next(s for s in tr.events if s.name == "dblsh.merge")
+    assert merge.args == {"steps": 6, "syncs": 0, "kernel": 1}
+
+
 class _CountedRange:
     """Stands in for ``record_function``: counts the ranges opened."""
 
